@@ -10,9 +10,9 @@
 //
 // Dual role:
 //   1. Differential-testing oracle: renders all scenes deterministically so
-//      the JAX/TPU renderer can be compared per-pixel (<= 1e-3 RGB).
-//   2. Performance baseline: the "OpenCL-on-CPU" stand-in the TPU build is
-//      measured against (BASELINE.md protocol), with -j threads.
+//      the JAX renderer can be compared per-pixel (<= 1e-3 RGB).
+//   2. Performance baseline: the "OpenCL-on-CPU" stand-in the accelerator
+//      build is measured against (BASELINE.md protocol), with -j threads.
 //
 // Usage: cpu_reference <scene.blob> <out.rgb32f> [frames] [threads]
 // Prints one JSON line with timing to stdout.
@@ -297,7 +297,7 @@ bool hitTriangle(V3 A, V3 B, V3 C, const Ray &r, float &dist, float &u, float &v
 // Deliberately reproduces the reference's branchless form INCLUDING its
 // 0*inf NaN behavior on axis-parallel rays originating on a slab plane
 // (opencl_kernel.cl:128-170): this binary is the differential oracle, so
-// faithfulness beats robustness here (the TPU renderer itself uses a
+// faithfulness beats robustness here (the JAX renderer itself uses a
 // NaN-safe reciprocal instead -- ops/pallas/mesh_kernels._safe_inv).
 bool hitAABB(V3 bmin, V3 bmax, const Ray &r, float &d0, float &d1, int &nearFace, int &farFace) {
   V3 inv{1.0f / r.d.x, 1.0f / r.d.y, 1.0f / r.d.z};

@@ -1,4 +1,4 @@
-"""relativitypathtracer_tpu: a TPU-native special-relativity ray tracer.
+"""relativitypathtracer_tpu: a special-relativity ray tracer in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of
 taylor-santos/RelativityPathTracer (reference mounted at /root/reference):

@@ -52,7 +52,7 @@ def main(argv=None) -> int:
     ap.add_argument("--metrics", action="store_true", help="print per-frame timing JSON")
     ap.add_argument("--profile", default=None, metavar="DIR",
                     help="capture a jax.profiler trace of the frame loop into DIR")
-    ap.add_argument("--platform", default=None, help="force a jax platform (cpu/tpu)")
+    ap.add_argument("--platform", default=None, help="force a jax platform (cpu/gpu)")
     args = ap.parse_args(argv)
     if args.frames < 1:
         ap.error(f"--frames must be >= 1 (got {args.frames})")

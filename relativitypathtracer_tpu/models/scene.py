@@ -2,8 +2,8 @@
 
 The reference keeps the scene in host std::vectors mirrored bit-for-bit into
 OpenCL buffers (/root/reference/Object.h:6-22, /root/reference/main.cpp:33-55).
-The TPU-native equivalent is a structure-of-arrays pytree `device_put` once
-into HBM; static quantities that shape the compiled program (object count,
+The equivalent here is a structure-of-arrays pytree `device_put` once
+into device memory; static quantities that shape the compiled program (object count,
 types, which objects are meshes) live in `SceneMeta`, a plain-Python object
 captured by closure at trace time.
 """
@@ -67,31 +67,13 @@ class MeshArrays(NamedTuple):
 
 
 class MeshStatic(NamedTuple):
-    """Frame-invariant per-mesh-object kernel inputs, precomputed at scene
-    build: Morton-permuted triangle attribute matrix, chunk bounding spheres,
-    and the Plucker operators for general (shadow) rays. Only the
-    shared-origin constants depend on the per-frame camera event."""
+    """Frame-invariant per-mesh-object inputs of the Triton mesh walks
+    (ops.pallas.mesh_kernels), precomputed at scene build from the
+    Morton-ordered triangles. Only the shared-origin constants depend on
+    the per-frame camera event."""
 
-    attrs: jnp.ndarray  # (T_pad, 15)
-    spheres: jnp.ndarray  # (n_chunks, 4) at TC granularity (shared kernel)
-    gen_cols: jnp.ndarray  # (4*T_pad, 10)
-    gen_spheres: jnp.ndarray  # (T_pad/TC_GEN, 4) general-kernel granularity
-    # Large-mesh tier (ops.pallas.mesh_large), None for small meshes
-    # (gen_rec is not None doubles as the tier-engagement marker):
-    gen_rec: jnp.ndarray | None = None  # (C*REC_GEN, 128) lane-major DMA records
-    attrs_split: jnp.ndarray | None = None  # (C*REC_AT, 128) bf16-split records
-
-
-class MeshBatchStatic(NamedTuple):
-    """Frame-invariant inputs for the BATCHED multi-mesh kernels
-    (ops.pallas.mesh_batch): every mesh object's Morton-ordered constants
-    concatenated into one factor-grouped pool. Built only for scenes with
-    >1 mesh object; per-object chunk counts (static) live in
-    SceneMeta.mesh_chunk_counts."""
-
-    attrs: jnp.ndarray  # (Tsum_pad, 15)
-    gen_cols: jnp.ndarray  # (4*Tsum_pad, 10) globally factor-grouped
-    spheres: jnp.ndarray  # (C, 4) object-major concat
+    spheres: jnp.ndarray  # (n_chunks, 4) chunk bounding spheres
+    gen_rows: jnp.ndarray  # (GENERAL_ROWS, T_pad) Plucker operators
 
 
 class Scene(NamedTuple):
@@ -104,7 +86,6 @@ class Scene(NamedTuple):
     mesh_static: tuple  # MeshStatic per mesh object (meta.mesh_ids order)
     white_point: jnp.ndarray  # (3,) f32
     ambient: jnp.ndarray  # () f32
-    mesh_batch: MeshBatchStatic | None = None  # multi-mesh fused pool
 
 
 @dataclasses.dataclass(frozen=True)
@@ -126,13 +107,12 @@ class SceneMeta:
     max_octree_depth: int
     use_footprint_tex: bool = True  # small textures: 1-gather footprint atlas
     any_flash: bool = False  # scene contains proper-time flash objects
-    mesh_chunk_counts: tuple = ()  # chunks per mesh object in the batch pool
 
 
 def _morton_perm(verts: np.ndarray, tri_v: np.ndarray, tri_ids: np.ndarray) -> tuple:
     """Morton (Z-curve) ordering of the given ABSOLUTE triangle ids by
-    quantized centroid, so that fixed-size triangle chunks in the Pallas mesh
-    kernels are spatially tight and the chunk-vs-ray-cone culling actually
+    quantized centroid, so that fixed-size triangle chunks in the mesh walks
+    are spatially tight and the chunk-vs-ray-cone culling actually
     skips work. Returns a tuple of python ints (hashable, lives in
     SceneMeta)."""
     if len(tri_ids) == 0:
@@ -160,9 +140,8 @@ def _footprint_atlas(packed_texels: np.ndarray, texture_values: list, regions: l
     (x0, y0): taps [(x0,y0), (x1,y0), (x1,y1), (x2,y1)] with x1=clip(x0+1),
     y1=clip(y0+1), x2=clip(x1-1) (the reference's border quirk,
     opencl_kernel.cl:427-470) stored as 4 consecutive u32 texels. One 32-byte
-    row gather then fetches a pixel's whole footprint -- gathers are the
-    texturing bottleneck on TPU (~2.6ms per 786k-ray tap via XLA), and their
-    cost grows with table size, so each region covers only the texel
+    row gather then fetches a pixel's whole footprint instead of four
+    scattered taps, and each region covers only the texel
     rectangle its object can actually address (full texture for analytic-UV
     objects; the static uv-hull for meshes -- mesh uvs are barycentric convex
     combinations of the uv pool).
@@ -193,8 +172,7 @@ def _footprint_atlas(packed_texels: np.ndarray, texture_values: list, regions: l
         )  # (rh, rw, 4)
         # 16x16-texel tiles in MORTON order over the (pow2-padded) tile grid
         # (ops.texture_layout): a screen block's 2D texel footprint then maps
-        # to a compact 1D row range, which the windowed-DMA texture kernel
-        # needs to walk large atlases in a few windows.
+        # to a compact 1D row range.
         from ..ops.texture_layout import (
             MAX_TILES_PER_AXIS, region_quads, region_tile_grid, tile_slot)
 
@@ -357,19 +335,10 @@ def build_scene(host) -> tuple[Scene, SceneMeta]:
         for i, rng in zip(mesh_ids, tri_ranges)
     )
 
-    # Frame-invariant mesh kernel inputs (attr matrix, chunk spheres,
-    # Plucker operators), precomputed once per scene.
-    from ..ops.mesh_intersect import (
-        general_ray_constants, mesh_tri_vertices, tri_attr_matrix, tri_count,
-        _round_up as _ru,
-    )
-    from ..ops.pallas.mesh_kernels import TC_GEN, chunk_spheres
-
-    def _large_t() -> int:
-        from ..ops.mesh_intersect import LARGE_MODE
-        from ..ops.pallas.mesh_large import LARGE_T
-
-        return -1 if LARGE_MODE else LARGE_T  # forced mode: everything large
+    # Frame-invariant mesh walk inputs (chunk spheres, Plucker operators),
+    # precomputed once per scene.
+    from ..ops.mesh_intersect import general_ray_constants, mesh_tri_vertices, tri_count
+    from ..ops.pallas.mesh_kernels import chunk_spheres, general_rows
 
     mesh_static = []
     for k, rng_pair in enumerate(tri_ranges):
@@ -378,54 +347,12 @@ def build_scene(host) -> tuple[Scene, SceneMeta]:
         # when the octree-reachable set is used (it can exclude foreign tris
         # from the shared pool, so it is NOT the seeded range length).
         T_k = tri_count(rng_pair, perm_arr)
-        T_pad_k = _ru(max(T_k, 1), 256)
         A, B, C = mesh_tri_vertices(mesh, rng_pair, perm_arr)
-        attrs_k = tri_attr_matrix(mesh, rng_pair, T_pad_k, perm_arr)
-        spheres_k = chunk_spheres(A, B, C, T_k, T_pad_k)
-        gen_cols_k = general_ray_constants(mesh, rng_pair, perm_arr)[0]
-        extra = {}
-        if T_pad_k > _large_t():
-            # Large-mesh tier: per-chunk DMA records and the bf16-split attr
-            # pool (ops.pallas.mesh_large; super floors derive from the
-            # chunk cull at trace time, no precomputed super spheres).
-            from ..ops.pallas.mesh_kernels import split_bf16
-            from ..ops.pallas.mesh_large import (
-                pack_attr_records, pack_general_records)
-
-            extra = dict(
-                gen_rec=pack_general_records(gen_cols_k, T_pad_k),
-                attrs_split=pack_attr_records(split_bf16(attrs_k), T_pad_k),
-            )
+        cols_k, _, T_pad_k = general_ray_constants(mesh, rng_pair, perm_arr)
         mesh_static.append(MeshStatic(
-            attrs=attrs_k,
-            spheres=spheres_k,
-            gen_cols=gen_cols_k,
-            gen_spheres=chunk_spheres(A, B, C, T_k, T_pad_k, tc=TC_GEN),
-            **extra,
+            spheres=chunk_spheres(A, B, C, T_k, T_pad_k),
+            gen_rows=general_rows(cols_k, T_pad_k),
         ))
-
-    # Fused multi-mesh pool (batched kernels): concat per-object statics,
-    # re-grouping gen_cols by factor GLOBALLY so every kernel slice offset is
-    # uniform in the concatenated Tsum_pad. Scenes containing a large-tier
-    # mesh keep the per-object kernel loop (the batch pools are VMEM-bound).
-    mesh_batch = None
-    chunk_counts = ()
-    if len(mesh_static) > 1 and all(ms.gen_rec is None for ms in mesh_static):
-        from ..ops.pallas.mesh_kernels import TC
-
-        tpads = [ms.attrs.shape[0] for ms in mesh_static]
-        det, uu, vv, tt = [], [], [], []
-        for ms, tp in zip(mesh_static, tpads):
-            det.append(ms.gen_cols[0:tp])
-            uu.append(ms.gen_cols[tp:2 * tp])
-            vv.append(ms.gen_cols[2 * tp:3 * tp])
-            tt.append(ms.gen_cols[3 * tp:4 * tp])
-        mesh_batch = MeshBatchStatic(
-            attrs=jnp.concatenate([ms.attrs for ms in mesh_static], axis=0),
-            gen_cols=jnp.concatenate(det + uu + vv + tt, axis=0),
-            spheres=jnp.concatenate([ms.spheres for ms in mesh_static], axis=0),
-        )
-        chunk_counts = tuple(tp // TC for tp in tpads)
 
     scene = Scene(
         objects=objects, mesh=mesh, textures=textures,
@@ -433,7 +360,6 @@ def build_scene(host) -> tuple[Scene, SceneMeta]:
         tex_quads=jnp.asarray(quads), tex_fp=_i32(tex_fp),
         mesh_static=tuple(mesh_static),
         white_point=_f32(host.white_point), ambient=jnp.float32(host.ambient),
-        mesh_batch=mesh_batch,
     )
 
     meta = SceneMeta(
@@ -454,6 +380,5 @@ def build_scene(host) -> tuple[Scene, SceneMeta]:
         # (real accesses are screen-coherent, so small 32-byte rows win).
         use_footprint_tex=bool(quads.size * 4 <= 48 * 1024 * 1024),
         any_flash=bool((flash_period > 0).any()),
-        mesh_chunk_counts=chunk_counts,
     )
     return scene, meta

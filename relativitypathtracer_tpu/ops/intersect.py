@@ -4,10 +4,10 @@ Wavefront re-design of the reference per-pixel intersectors
 (/root/reference/opencl_kernel.cl:310-359): every function evaluates a whole
 ray batch against one object with dense vector math and masked invalid lanes.
 
-LAYOUT: rays live on the LAST axis -- 3-vectors are (3, N), scalars (N,).
-The TPU vector unit tiles the minor axis into 128 lanes, so the ray axis must
-be minor; component count (3 or 4) stays on the sublane/leading side. All
-math is written per-component to keep XLA from materializing (N, 3) arrays.
+LAYOUT: rays live on the LAST axis -- 3-vectors are (3, N), scalars (N,),
+so every component is a contiguous ray vector; component count (3 or 4)
+stays on the leading side. All math is written per-component to keep XLA
+from materializing (N, 3) arrays.
 
 Inputs are the spatial components of the 4D rest-frame ray (origin `o3`,
 direction `d3`); the object-space transform by InvM happens inside, exactly as

@@ -1,10 +1,10 @@
-"""Batched ray/triangle-mesh intersection, designed for the MXU.
+"""Batched ray/triangle-mesh intersection.
 
 The reference walks a stackless octree per pixel with a divergent while-loop
-(/root/reference/opencl_kernel.cl:200-308). On TPU the FLOPs want to live in
-big dense matmuls, so the formulation here factors Moller-Trumbore
-(/root/reference/opencl_kernel.cl:106-126) into per-triangle constants and a
-single triangle-matrix x ray-matrix product:
+(/root/reference/opencl_kernel.cl:200-308). Here Moller-Trumbore
+(/root/reference/opencl_kernel.cl:106-126) is factored into per-triangle
+constants that are linear in the ray, so a triangle block against a ray
+block is one small matrix product:
 
 * Shared-origin rays (all primary rays of one object share origin
   `stationaryCam`): with tvec = o - A constant per triangle,
@@ -19,18 +19,18 @@ single triangle-matrix x ray-matrix product:
   all linear in r, i.e. one (4T, 10) @ (10, N) matmul (Plucker-style).
 
 LAYOUT: rays on the LAST axis everywhere -- directions (3, N), origins (3,)
-or (3, N) -- so the minor dimension maps onto the TPU's 128 lanes.
+or (3, N).
 
-Both paths stream triangle chunks with a running best-hit reduce. Semantics
-(epsilon test on det, backface hits allowed, u/v/t acceptance order) match
-the reference.
+Two routes share these constants: the jnp scan here (every triangle chunk
+against every ray, a running best-hit reduce; the reference for tests) and
+the culled Triton walks of ops.pallas.mesh_kernels, which the renderer uses
+on a GPU (resolve_kernels). Semantics (epsilon test on det, backface hits
+allowed, u/v/t acceptance order) match the reference.
 """
 
 from __future__ import annotations
 
 import math
-
-import os
 
 import jax
 import jax.numpy as jnp
@@ -42,46 +42,26 @@ INF = 1e20
 
 _PREC = jax.lax.Precision.HIGHEST
 
-# Routing override for the streaming mesh kernels. None = auto (Pallas on
-# non-CPU backends, jnp fallback on CPU); True/False force a path;
-# "interpret" runs the REAL Pallas kernels in interpret mode (CPU-testable:
-# exercises live-chunk culling, the counting sort, early termination and
-# tmax bounding -- none of which the jnp fallback contains). Tests that flip
-# this must clear the render-fn caches (they close over the resolved mode).
+# Routing override for the mesh walks, for tests. None = choose from the
+# platform (the Triton kernels on a GPU, the jnp scan anywhere else);
+# True/False force a path; "interpret" runs the REAL kernels in Pallas
+# interpret mode (CPU-testable: exercises live-chunk culling, the bucket
+# order, early termination and tmax bounding -- none of which the jnp scan
+# contains). Tests that flip this must clear the render-fn caches (they
+# close over the resolved mode).
 PALLAS_MODE = None
 
-# Routing override for the LARGE-mesh streaming kernels (HBM-resident
-# constants + superchunk ordering, ops.pallas.mesh_large). None = auto
-# (T_pad > mesh_large.LARGE_T); True/False force. Tests force True to
-# exercise the large path on small fixtures in interpret mode.
-LARGE_MODE = None
 
-
-def _resolve_large(T_pad: int) -> bool:
-    if LARGE_MODE is not None:
-        return bool(LARGE_MODE)
-    from .pallas.mesh_large import LARGE_T
-
-    return T_pad > LARGE_T
-
-
-def _resolve_pallas(use_pallas):
-    if use_pallas is None:
-        use_pallas = PALLAS_MODE
-    if use_pallas is None:
-        # Env hook for tools (e.g. RPT_PALLAS=interpret runs the production
-        # kernel bodies on a CPU host for walk statistics); read at trace time.
-        env = os.environ.get("RPT_PALLAS", "").strip().lower()
-        if env in ("1", "true", "on"):
-            use_pallas = True
-        elif env in ("0", "false", "off"):
-            use_pallas = False
-        elif env == "interpret":
-            use_pallas = "interpret"
-    if use_pallas is None:
-        use_pallas = jax.default_backend() != "cpu"
-    interpret = use_pallas == "interpret"
-    return bool(use_pallas), interpret
+def resolve_kernels(use_kernels=None):
+    """(use_kernels, interpret) for the mesh walks. Without an explicit
+    request or a PALLAS_MODE override, the observed platform decides: the
+    compiled Triton kernels on "gpu", the jnp scan on anything else. Interpret
+    mode runs only when asked for."""
+    if use_kernels is None:
+        use_kernels = PALLAS_MODE
+    if use_kernels is None:
+        use_kernels = jax.default_backend() == "gpu"
+    return bool(use_kernels), use_kernels == "interpret"
 
 
 def _vma_like(init, like):
@@ -161,28 +141,6 @@ def shared_origin_constants(mesh, tri_range, ro, perm=None):
     return consts, c_t, T, T_pad
 
 
-def tri_attr_matrix(mesh, tri_range, T_pad, perm=None):
-    """(T_pad, 15) interpolation operators: cols = [nA(3), uvA(2),
-    (nB-nA)(3), (uvB-uvA)(2), (nC-nA)(3), (uvC-uvA)(2)] so that
-    attr(u, v) = base + u*du + v*dv reproduces barycentric interpolation."""
-    T = tri_count(tri_range, perm)
-    if perm is not None:
-        tn = mesh.tri_n[perm]
-        tuv = mesh.tri_uv[perm]
-    else:
-        lo, hi = int(tri_range[0]), int(tri_range[1])
-        tn = mesh.tri_n[lo:hi]
-        tuv = mesh.tri_uv[lo:hi]
-    nA, nB, nC = (mesh.normals[tn[:, k]] for k in range(3))
-    uA, uB, uC = (mesh.uvs[tuv[:, k]] for k in range(3))
-    base = jnp.concatenate([nA, uA], axis=1)  # (T, 5)
-    du = jnp.concatenate([nB - nA, uB - uA], axis=1)
-    dv = jnp.concatenate([nC - nA, uC - uA], axis=1)
-    attrs = jnp.concatenate([base, du, dv], axis=1)  # (T, 15)
-    # (T_pad, 15): row-major so kernel slices are sublane-dynamic (8-aligned)
-    return jnp.pad(attrs, ((0, T_pad - T), (0, 0)))
-
-
 def general_ray_constants(mesh, tri_range, perm=None):
     """Per-triangle Plucker-lift operators, FACTOR-GROUPED: returns
     (cols (4*T_pad, 10), T, T_pad) where rows [0,T_pad) are the det
@@ -226,8 +184,7 @@ def _mt_accept(det, u_num, v_num, t_num, tri_ok):
 
 
 def mesh_intersect_shared(mesh, tri_range, m4, inv_m, o3, d3, *, tri_chunk=512,
-                          use_pallas=None, perm=None, static=None,
-                          debug_iters=False):
+                          use_pallas=None, perm=None, static=None):
     """Nearest-hit of shared-origin rays against triangles [lo, hi).
 
     o3: (3,) rest-frame spatial origin; d3: (3, N) rest-frame spatial dirs.
@@ -235,62 +192,55 @@ def mesh_intersect_shared(mesh, tri_range, m4, inv_m, o3, d3, *, tri_chunk=512,
     converted via world-space distance like intersect_octree
     (opencl_kernel.cl:301-303).
 
-    use_pallas: route the streaming reduce through the Pallas TPU kernel
-    (default: automatically on TPU backends).
+    use_pallas: route through the Triton walk (default: resolve_kernels).
+    static: the mesh object's models.scene.MeshStatic, if prebuilt.
     """
     n = d3.shape[1]
-    lo = int(tri_range[0])
     if tri_count(tri_range, perm) == 0:
         return (jnp.full((n,), INF), jnp.zeros((3, n)), jnp.zeros((2, n)),
                 jnp.zeros((n,), bool))
+    ro, dh, bt, bu, bv, btri = mesh_nearest_hit(
+        mesh, tri_range, inv_m, o3, d3, tri_chunk=tri_chunk,
+        use_pallas=use_pallas, perm=perm, static=static)
+    return finalize_best_hit(mesh, int(tri_range[0]), m4, inv_m, o3, d3, ro,
+                             dh, bt, bu, bv, btri, perm)
 
+
+def mesh_nearest_hit(mesh, tri_range, inv_m, o3, d3, *, tri_chunk=512,
+                     use_pallas=None, perm=None, static=None):
+    """The object-space walk of mesh_intersect_shared (non-empty mesh).
+
+    Returns (ro (3,) object-space origin, dh (3, N) unit object-space dirs,
+    bt (N,) object-space hit distance (INF on miss), bu, bv barycentrics,
+    btri (N,) index into the (Morton-ordered) triangle set, -1 or 0 on
+    miss)."""
+    n = d3.shape[1]
     ro = apply_affine3(inv_m, o3)  # (3,)
     d = apply_linear3(inv_m, d3)  # (3, N)
     scale = norm3(d)
     dh = d / scale
 
-    use_pallas, interpret = _resolve_pallas(use_pallas)
+    use_pallas, interpret = resolve_kernels(use_pallas)
     consts, c_t, T, T_pad = shared_origin_constants(mesh, tri_range, ro, perm)
 
     if use_pallas:
-        from .pallas.mesh_kernels import chunk_spheres, shared_nearest_hit
+        from .pallas.mesh_kernels import chunk_spheres, shared_nearest_hit, shared_rows
 
         if static is not None:
-            attrs, spheres = static.attrs, static.spheres
+            spheres = static.spheres
         else:
             A, B, C = mesh_tri_vertices(mesh, tri_range, perm)
-            attrs = tri_attr_matrix(mesh, tri_range, T_pad, perm)
             spheres = chunk_spheres(A, B, C, T, T_pad)
-        if _resolve_large(T_pad):
-            from .pallas.mesh_kernels import split_bf16
-            from .pallas.mesh_large import (
-                large_shared_nearest_hit, pack_attr_records,
-                pack_shared_records)
-
-            attrs_rec = (static.attrs_split if static is not None
-                         and static.attrs_split is not None
-                         else pack_attr_records(split_bf16(attrs), T_pad))
-            consts_rec = pack_shared_records(consts, T_pad)
-            out = large_shared_nearest_hit(
-                consts_rec, attrs_rec, spheres, dh, ro, T=T,
-                interpret=interpret)
-        else:
-            out = shared_nearest_hit(
-                consts, c_t, attrs, spheres, dh, ro, interpret=interpret,
-                debug_iters=debug_iters)
-        bt, bu, bv, btri, battr = out[:5]
-        valid = btri >= 0  # kernel init is -1; any real hit overwrites it
-        # attr(u, v) = base + u*du + v*dv (see tri_attr_matrix)
-        interp = battr[0:5] + bu * battr[5:10] + bv * battr[10:15]
-        normal = normalize3(apply_normal3(inv_m, interp[0:3]))
-        uv = interp[3:5]
-        obj_pt = ro[:, None] + bt * dh
-        world_pt = apply_affine3(m4, obj_pt)
-        t = norm3(world_pt - o3[:, None]) / norm3(d3)
-        t = jnp.where(valid, t, INF)
-        if debug_iters:
-            return t, normal, uv, valid, out[5]
-        return t, normal, uv, valid
+        rows = shared_rows(consts, T_pad)
+        bt, btri = shared_nearest_hit(rows, spheres, dh, ro, interpret=interpret)
+        # Barycentrics of the winning triangle, recomputed from its
+        # constants with the kernel's own arithmetic (one gather per ray).
+        w = rows[:, jnp.clip(btri, 0, T_pad - 1)]  # (10, N)
+        inv_det = 1.0 / (w[0] * dh[0] + w[1] * dh[1] + w[2] * dh[2])
+        hit = btri >= 0
+        bu = jnp.where(hit, (w[3] * dh[0] + w[4] * dh[1] + w[5] * dh[2]) * inv_det, 0.0)
+        bv = jnp.where(hit, (w[6] * dh[0] + w[7] * dh[1] + w[8] * dh[2]) * inv_det, 0.0)
+        return ro, dh, bt, bu, bv, btri
 
     # Tc must DIVIDE T_pad: the factor blocks are packed contiguously at
     # T_pad stride, so a floor-divided chunk count silently drops the tail
@@ -315,7 +265,6 @@ def mesh_intersect_shared(mesh, tri_range, m4, inv_m, o3, d3, *, tri_chunk=512,
         tri_ok = (base + jnp.arange(Tc)) < T
         dist, u, v = _mt_accept(det, u_num, v_num, ct[:, None], tri_ok[:, None])
         idx = jnp.argmin(dist, axis=0)  # (N,)
-        # One-hot row select instead of a sublane gather (TPU-friendly).
         onehot = jax.lax.broadcasted_iota(jnp.int32, dist.shape, 0) == idx[None, :]
         dmin = jnp.min(dist, axis=0)
         umin = jnp.sum(jnp.where(onehot, u, 0.0), axis=0)
@@ -332,15 +281,14 @@ def mesh_intersect_shared(mesh, tri_range, m4, inv_m, o3, d3, *, tri_chunk=512,
     init = _vma_like((jnp.full((n,), INF), jnp.zeros((n,)), jnp.zeros((n,)),
                       jnp.zeros((n,), jnp.int32)), dh)
     (bt, bu, bv, btri), _ = jax.lax.scan(chunk_step, init, jnp.arange(n_chunks))
-
-    return finalize_best_hit(mesh, lo, m4, inv_m, o3, d3, ro, dh, bt, bu, bv, btri, perm)
+    return ro, dh, bt, bu, bv, btri
 
 
 def finalize_best_hit(mesh, lo, m4, inv_m, o3, d3, ro, dh, bt, bu, bv, btri, perm=None):
     """Attribute interpolation + world-distance conversion for the best hit.
 
     Mirrors the post-walk block of intersect_octree
-    (opencl_kernel.cl:287-303). Shared by the jnp and Pallas mesh paths.
+    (opencl_kernel.cl:287-303). Shared by the jnp scan and the Triton walk.
     """
     valid = bt < INF
     if perm is not None:
@@ -372,124 +320,8 @@ def finalize_best_hit(mesh, lo, m4, inv_m, o3, d3, ro, dh, bt, bu, bv, btri, per
     return t, normal, uv, valid
 
 
-def mesh_intersect_shared_batched(mesh, meta, batch, L, inv_ms, m4s,
-                                  stat_cams, dir4, interpret=False):
-    """All mesh objects in ONE kernel (shared-origin rays).
-
-    meta: SceneMeta; batch: models.scene.MeshBatchStatic; L/inv_ms/m4s:
-    (O_total, 4, 4) frame/model matrices (indexed by meta.mesh_ids);
-    stat_cams: (O_total, 4); dir4: (4, N) camera-frame 4-dirs.
-    Returns (t, normal (3, N) rest-frame of the winner, uv, obj global id,
-    valid) directly mergeable with the analytic candidates.
-    """
-    from .pallas.mesh_batch import MAT_COLS, batched_nearest_shared
-
-    n = dir4.shape[1]
-    consts_det, consts_u, consts_v, consts_ct = [], [], [], []
-    boxes, mats_rows = [], []
-    d_os, o_os, s_os = [], [], []
-    c0 = 0
-    for k, i in enumerate(meta.mesh_ids):
-        d4 = L[i] @ dir4
-        perm = (jnp.asarray(meta.mesh_perms[k], jnp.int32)
-                if meta.mesh_perms[k] else None)
-        ro = apply_affine3(inv_ms[i], stat_cams[i, 1:4])  # (3,)
-        d = apply_linear3(inv_ms[i], d4[1:4])
-        dh = d / norm3(d)
-        # object-space dist -> shared 4D parameter: t = dist*|M_R dh|/|d3|
-        s = norm3(apply_linear3(m4s[i], dh)) / norm3(d4[1:4])
-        cst, _, _, T_pad_k = shared_origin_constants(mesh, meta.mesh_tri_ranges[k],
-                                                     ro, perm)
-        consts_det.append(cst[0:T_pad_k])
-        consts_u.append(cst[T_pad_k:2 * T_pad_k])
-        consts_v.append(cst[2 * T_pad_k:3 * T_pad_k])
-        consts_ct.append(cst[3 * T_pad_k:4 * T_pad_k])
-        # Live-list inputs (XLA fuses these into the cone reductions); the
-        # kernel itself re-derives rays in-kernel from the mats table.
-        d_os.append(dh)
-        o_os.append(jnp.broadcast_to(ro[:, None], (3, n)))
-        s_os.append(s)
-        A = inv_ms[i][:3, :3] @ L[i][1:4, :]  # (3, 4) fused dir transform
-        mats_rows.append(jnp.concatenate([
-            A.reshape(12), inv_ms[i][:3, 3], ro, m4s[i][:3, :3].reshape(9),
-            L[i][1:4, :].reshape(12), jnp.zeros((MAT_COLS - 39,)),
-        ]))
-        nck = meta.mesh_chunk_counts[k]
-        sph_k = batch.spheres[c0:c0 + nck]
-        c0 += nck
-        lo = jnp.min(sph_k[:, :3] - sph_k[:, 3:4], axis=0)
-        hi = jnp.max(sph_k[:, :3] + sph_k[:, 3:4], axis=0)
-        boxes.append(jnp.concatenate([lo, hi, ro]))
-    consts = jnp.concatenate(consts_det + consts_u + consts_v + consts_ct, axis=0)
-    boxes = jnp.stack(boxes)
-    mats = jnp.stack(mats_rows)
-
-    t, bu, bv, btri, bobj, battr = batched_nearest_shared(
-        consts, batch.attrs, batch.spheres, boxes, mats, dir4,
-        jnp.stack(d_os), jnp.stack(o_os), jnp.stack(s_os),
-        meta.mesh_chunk_counts, interpret=interpret)
-    valid = btri >= 0
-    interp = battr[0:5] + bu * battr[5:10] + bv * battr[10:15]
-    # Winner-frame normal transform + global object id via one-hot selects
-    # over the (few) mesh objects -- no gathers.
-    onehot = (bobj[None, :] ==
-              jnp.arange(len(meta.mesh_ids), dtype=jnp.int32)[:, None])
-    onehot_f = onehot.astype(jnp.float32)
-    inv_sel = jnp.stack([inv_ms[i] for i in meta.mesh_ids])  # (O, 4, 4)
-    nt = jnp.swapaxes(inv_sel[:, :3, :3], 1, 2).reshape(len(meta.mesh_ids), 9)
-    nt_pix = jnp.matmul(nt.T, onehot_f).reshape(3, 3, -1)  # (3, 3, N)
-    normal = normalize3(jnp.einsum("ijn,jn->in", nt_pix, interp[0:3]))
-    ids_col = jnp.asarray(meta.mesh_ids, jnp.int32)[:, None]
-    obj = jnp.sum(jnp.where(onehot, ids_col, 0), axis=0)
-    t = jnp.where(valid, t, INF)
-    return t, normal, interp[3:5], obj, valid
-
-
-def mesh_min_t_general_batched(mesh, meta, batch, L, inv_ms, m4s,
-                               origins4, dir4, exclude_id, tmax,
-                               interpret=False):
-    """All mesh objects in ONE kernel (per-ray-origin shadow rays).
-
-    tmax: (N,) SHARED-parameter search bound (0 = masked lane). The
-    excluded object (the light) is dropped by zeroing its chunk range from
-    the live lists via a masked spheres copy -- exclusion by object id is
-    static per light loop, so the caller passes exclude_id and this builds
-    a per-call pool view without touching the static arrays.
-    Returns (N,) f32 min(t_shared, tmax)-like (INF where nothing hit).
-    """
-    from .pallas.mesh_batch import MAT_COLS, batched_min_t_general
-
-    d_os, o_os, s_os, mats_rows = [], [], [], []
-    for k, i in enumerate(meta.mesh_ids):
-        o4 = L[i] @ origins4
-        d4 = L[i] @ dir4
-        ro = apply_affine3(inv_ms[i], o4[1:4])
-        d = apply_linear3(inv_ms[i], d4[1:4])
-        dh = d / norm3(d)
-        s = norm3(apply_linear3(m4s[i], dh)) / norm3(d4[1:4])
-        d_os.append(dh)
-        o_os.append(ro)
-        s_os.append(s)
-        A = inv_ms[i][:3, :3] @ L[i][1:4, :]
-        mats_rows.append(jnp.concatenate([
-            A.reshape(12), inv_ms[i][:3, 3], jnp.zeros((3,)),
-            m4s[i][:3, :3].reshape(9), L[i][1:4, :].reshape(12),
-            jnp.zeros((MAT_COLS - 39,)),
-        ]))
-    mats = jnp.stack(mats_rows)
-    enabled = tuple(i != exclude_id for i in meta.mesh_ids)
-    valid = tmax > 0.0
-    bt = batched_min_t_general(batch.gen_cols, batch.spheres, mats,
-                               origins4, dir4, jnp.stack(d_os),
-                               jnp.stack(o_os), jnp.stack(s_os), tmax,
-                               meta.mesh_chunk_counts, enabled=enabled,
-                               valid=valid, interpret=interpret)
-    return bt
-
-
 def mesh_min_t_general(mesh, tri_range, m4, inv_m, o3, d3, *, tri_chunk=512,
-                       use_pallas=None, perm=None, tmax=None, static=None,
-                       debug_iters=False):
+                       use_pallas=None, perm=None, tmax=None, static=None):
     """Minimum hit parameter t for rays with per-ray origins (shadow rays).
 
     o3: (3, N) rest-frame spatial origins; d3: (3, N) spatial dirs.
@@ -517,22 +349,18 @@ def mesh_min_t_general(mesh, tri_range, m4, inv_m, o3, d3, *, tri_chunk=512,
     )
     r10 = jnp.concatenate([dh, mom, ro, jnp.ones((1, n))], axis=0)  # (10, N)
 
-    use_pallas, interpret = _resolve_pallas(use_pallas)
-    T = tri_count(tri_range, perm)
-    T_pad = _round_up(max(T, 1), 256)
-    if use_pallas and static is not None:
-        cols = static.gen_cols
-    else:
-        cols, T, T_pad = general_ray_constants(mesh, tri_range, perm)
+    use_pallas, interpret = resolve_kernels(use_pallas)
 
     if use_pallas:
-        from .pallas.mesh_kernels import TC_GEN, chunk_spheres, general_min_t
+        from .pallas.mesh_kernels import chunk_spheres, general_min_t, general_rows
 
         if static is not None:
-            spheres = static.gen_spheres
+            rows, spheres = static.gen_rows, static.spheres
         else:
+            cols, T, T_pad = general_ray_constants(mesh, tri_range, perm)
+            rows = general_rows(cols, T_pad)
             A, B, C = mesh_tri_vertices(mesh, tri_range, perm)
-            spheres = chunk_spheres(A, B, C, T, T_pad, tc=TC_GEN)
+            spheres = chunk_spheres(A, B, C, T, T_pad)
         tmax_obj = None
         valid = None
         tcut_obj = None
@@ -558,31 +386,10 @@ def mesh_min_t_general(mesh, tri_range, m4, inv_m, o3, d3, *, tri_chunk=512,
             tcut_obj = jnp.where(valid,
                                  jnp.maximum(tmax_base * 0.999 - 1e-3, 0.0),
                                  0.0)
-        if _resolve_large(T_pad):
-            from .pallas.mesh_kernels import TC
-            from .pallas.mesh_large import (
-                large_general_min_t, pack_general_records)
-
-            # Records are TC-granularity: use TC chunk spheres (NOT the
-            # TC_GEN `spheres` above -- with TC_GEN != TC the bitmask and
-            # record cursor would index the wrong chunks).
-            sph_tc = (static.spheres if static is not None
-                      else spheres if TC_GEN == TC
-                      else chunk_spheres(A, B, C, T, T_pad, tc=TC))
-            cols_rec = (static.gen_rec if static is not None
-                        and static.gen_rec is not None
-                        else pack_general_records(cols, T_pad))
-            bt = large_general_min_t(cols_rec, sph_tc, r10, tmax_obj,
-                                     valid=valid, tcut_obj=tcut_obj, T=T,
-                                     interpret=interpret)
-            dbg_iters = None
-        else:
-            bt = general_min_t(cols, spheres, r10, tmax_obj, valid=valid,
-                               tcut_obj=tcut_obj, interpret=interpret,
-                               debug_iters=debug_iters)
-            if debug_iters:
-                bt, dbg_iters = bt
+        bt = general_min_t(rows, spheres, r10, tmax_obj, valid=valid,
+                           tcut_obj=tcut_obj, interpret=interpret)
     else:
+        cols, T, T_pad = general_ray_constants(mesh, tri_range, perm)
         # Tc must divide T_pad (see mesh_intersect_shared: a floor-divided
         # chunk count drops tail triangles; shadows then leak).
         Tc = math.gcd(min(tri_chunk, T_pad), T_pad)
@@ -600,13 +407,9 @@ def mesh_min_t_general(mesh, tri_range, m4, inv_m, o3, d3, *, tri_chunk=512,
 
         bt, _ = jax.lax.scan(chunk_step, _vma_like(jnp.full((n,), INF), r10),
                              jnp.arange(n_chunks))
-        dbg_iters = None
 
     valid = bt < INF
     obj_pt = ro + bt * dh
     world_pt = apply_affine3(m4, obj_pt)
     t = norm3(world_pt - o3) / norm3(d3)
-    t = jnp.where(valid, t, INF)
-    if debug_iters:
-        return t, dbg_iters
-    return t
+    return jnp.where(valid, t, INF)

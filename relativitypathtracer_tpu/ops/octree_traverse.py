@@ -7,10 +7,10 @@ the face-exit neighbor; repeat until the walk leaves the tree or passes the
 best hit. Every ray advances in lockstep with masked lanes.
 
 This exists for component parity and as the arbiter implementation for
-tests; the production TPU path is the culled streaming matmul in
-ops.pallas.mesh_kernels (gather-free). Here each step performs per-ray
-gathers of node fields, which is fine on CPU and acceptable for validation
-runs on TPU.
+tests; the production path is the culled chunk walk of
+ops.pallas.mesh_kernels (Triton on a GPU) or the jnp scan. Here each step
+performs per-ray gathers of node fields and diverges per ray, which is fine
+for validation runs.
 
 Trip counts: the outer loop tests one triangle per active ray per iteration
 (cursor within the current leaf), or performs one neighbor-hop + descent when

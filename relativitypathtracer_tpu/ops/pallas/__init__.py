@@ -1,4 +1,4 @@
-"""TPU Pallas kernel families (mesh walks, analytic, shadow chain, texture).
+"""Pallas kernels (the Triton mesh walks of mesh_kernels).
 
 Shared helper: explicit varying-manual-axes (vma) hints for pallas_call
 out_shapes, required by jax 0.9's shard_map static replication check.

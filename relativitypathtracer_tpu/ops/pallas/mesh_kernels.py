@@ -1,30 +1,27 @@
-"""Pallas TPU kernels for streaming ray/triangle intersection.
+"""Culled ray/triangle mesh walks: XLA live-list builders + Triton kernels.
 
-The jnp mesh path (ops.mesh_intersect) materializes (T_chunk, N) matmul
-products in HBM -- ~3*T*N*4 bytes of traffic per frame, which dominates frame
-time. These kernels stream triangle chunks against a VMEM-resident ray block
-and keep every intermediate on-chip.
+The jnp mesh path (ops.mesh_intersect) tests every triangle against every
+ray and materializes (T_chunk, N) products in device memory. These kernels
+walk only the triangle chunks that can matter for each ray group and keep
+every intermediate in registers.
 
-This is the TPU-native answer to the reference's divergent per-pixel octree
-walk (/root/reference/opencl_kernel.cl:200-308): instead of pointer chasing
-(gathers, which TPUs hate), triangles are Morton-ordered so each fixed-size
-chunk is spatially tight, and per (ray-block, chunk) culling happens OUTSIDE
-the kernel as a dense cone-vs-sphere test; the kernel receives a compacted,
-front-to-back-sorted live-chunk list per block and iterates it with a
-lax.while_loop -- dynamic trip count, so skipped chunks genuinely cost
-nothing (lax.cond in Mosaic is predicated: both sides execute).
+This is the wavefront answer to the reference's per-pixel octree walk
+(/root/reference/opencl_kernel.cl:200-308): triangles are Morton-ordered so
+each fixed-size chunk of TC triangles is spatially tight, and culling
+happens OUTSIDE the kernel as a dense cone-vs-sphere test per (ray block,
+chunk); each block gets a front-to-back live-chunk list. A Triton program
+owns RAYS rays of one block, loads the block's list from global memory and
+walks it with a while loop of dynamic trip count, stopping once every
+lane's search bound is nearer than the next chunk's bucket floor.
 
-Early termination: chunks arrive front-to-back, and the loop stops once the
-block-wide farthest search bound (min(best_t, per-lane root-AABB bound))
-is closer than the next chunk's nearest point.
+Kernel 1 (shared origin, primary rays): per-triangle constants (det/u/v
+rows + t scalar) against unit ray dirs. Returns (t, tri); barycentrics and
+surface attributes are recomputed for the winning triangle after the walk
+(ops.mesh_intersect.finalize_best_hit).
+Kernel 2 (general origin, shadow rays): Plucker-lifted rays against the
+per-triangle factor operators, min-t only, search bounded at the light.
 
-Kernel 1 (shared origin): per-triangle constants (det/u/v rows + t scalar)
-against unit ray dirs -- three (Tc, 3) @ (3, NB) MXU products per chunk.
-Barycentric surface attributes (normal, uv) are accumulated IN-KERNEL via a
-(15, Tc) @ (Tc, NB) one-hot product, so no per-ray attribute gathers remain.
-Kernel 2 (general origin): (Tc, 10) @ (10, NB) Plucker products for
-per-pixel shadow rays, min-t only, search bounded at the light distance.
-
+Both contract K=3..6 as explicit f32 multiply-adds (no dot, so no TF32).
 Acceptance semantics are the reference Moller-Trumbore
 (/root/reference/opencl_kernel.cl:106-126): epsilon test on det, backface
 hits allowed, u/v in-triangle tests, dist >= 0.
@@ -38,27 +35,29 @@ import os
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltriton
 
 from . import ray_vma
 
 EPSILON = 1e-7
 INF = 1e20
-# Rays per mesh-kernel block; VMEM budget ~6 (Tc, NB) f32 intermediates.
-# 1024 = one 32x32 screen tile. RPT_NB=2048 fuses two adjacent tiles per
-# block (import-time, like RPT_SUB): the floor probe (ROUND5_FLOOR.json,
-# bunny all-miss floor 4.33 of 6.39 ms) shows the frame is dominated by
-# per-block fixed costs across mostly-empty blocks, so halving the block
-# count targets that directly; the tile swizzle keeps 256-lane pixel quads
-# intact at any power-of-two multiple of 1024, so sub-cone culling
-# granularity is preserved via SUB (e.g. NB=2048 + SUB=16 == today's
-# 128-lane strips). Walk lists become per-PAIR unions (conservative,
-# exact results; tie flips possible where bucket order changes).
-NB = int(os.environ.get("RPT_NB", "1024") or 1024)
-TC = 32  # shared-kernel chunk; all kernel slices are sublane-dynamic (8-aligned)
-TC_GEN = 32  # general (shadow) kernel chunk (32 measured best; 64 re-tested
-# round 3: coarser culling + 2 MXU passes/iter lost ~0.6ms on bunny)
-N_ATTR = 15  # [normal(3) + uv(2)] x [base, du, dv]
+# Culling blocks of NB rays get one live-chunk list each: a 16x16 pixel
+# quadrant of a 32x32 screen tile under the renderer's quadrant-major swizzle
+# (render.tile_swizzle). Each block's cone is the union of SUB sub-cones of
+# NB // SUB rays (16x8 strips). RAYS rays per Triton program, NB // RAYS
+# programs per list. Measured on the flagship frame (PERF.md): per-256-ray
+# lists beat per-1024-ray tile lists and per-128-ray lists; 64, 128 and 256
+# rays per program and 4 or 8 warps tie within noise.
+NB = 256
+SUB = 2
+RAYS = 128
+NUM_WARPS = 4
+TC = 32  # triangles per chunk (culling and walk granularity)
+
+# Row layout of the per-chunk constants the kernels read (factor-major, one
+# row per coefficient, triangles along the minor axis):
+SHARED_ROWS = 10  # det c0..2, u c0..2, qvec c0..2, c_t
+GENERAL_ROWS = 19  # det r[0:3], u r[0:6], v r[0:6], t r[6:10]
 
 
 def _round_up(x: int, m: int) -> int:
@@ -73,6 +72,25 @@ def _safe_inv(d):
     degenerate axes fall back to the unbounded behavior."""
     return 1.0 / jnp.where(jnp.abs(d) < 1e-12,
                            jnp.where(d < 0, -1e-12, 1e-12), d)
+
+
+def box_exit(lo, hi, origins, dirs):
+    """Per-lane search bound against the union box [lo, hi] of all chunk
+    spheres: the slab far distance (with a 0.1% + 1e-3 margin), or 0 for
+    rays that miss the box. Every triangle lies inside the box, so no hit
+    exists beyond it. origins: (3,) or (3, N); dirs: (3, N)."""
+    n = dirs.shape[1]
+    o = jnp.broadcast_to(origins.reshape(3, -1), (3, n))
+    far = jnp.full((n,), INF, jnp.float32)
+    near = jnp.full((n,), -INF, jnp.float32)
+    for ax in range(3):
+        inv = _safe_inv(dirs[ax])
+        t0 = (lo[ax] - o[ax]) * inv
+        t1 = (hi[ax] - o[ax]) * inv
+        near = jnp.maximum(near, jnp.minimum(t0, t1))
+        far = jnp.minimum(far, jnp.maximum(t0, t1))
+    hits_box = (near <= far) & (far > 0)
+    return jnp.where(hits_box, far * 1.001 + 1e-3, 0.0)
 
 
 def chunk_spheres(A, B, C, T, T_pad, tc=TC):
@@ -103,34 +121,6 @@ def _cones_of(dh_blocks, o_blocks):
     return oc, axis, cos_a, o_rad
 
 
-# Culling sub-cones per NB-lane kernel block. 4 = 256-lane 16x16 pixel quads
-# (matches the tile swizzle's quadrant-major layout); 8/16 halve the lanes
-# per cone again (16x8 / 8x8 strips within a quadrant) -- tighter cones,
-# 2-4x the cull flops. RPT_SUB overrides for on-chip A/B (trace-time).
-# Default 8: measured round 4 on-chip (ROUND4_ONECLAIM.json) bunny
-# 7.996 -> 7.708 ms alone, 7.324 ms with pairing.
-SUB = int(os.environ.get("RPT_SUB", "8") or 8)
-
-
-def _pair_mode() -> bool:
-    """Chunk PAIRING: process two live chunks per while-loop iteration.
-
-    Keeps the 32-tri culling/bucketing granularity (a TC=64 re-chunk loses
-    cull precision -- measured -0.6ms round 3) while halving the number of
-    loop iterations and their fixed scalar overhead (SMEM order/floor reads,
-    bound reduction, trip bookkeeping). The pair is exact: the second chunk
-    of a pair may execute one step past the early-termination bound, which
-    can only ADD candidate hits that lose the min. Default ON since round 4
-    on the basis of the COMBINED RPT_PAIR=1 + RPT_SUB=8 A/B
-    (ROUND4_ONECLAIM.json: bunny 7.996 -> 7.324 ms, +8.4% -- the only
-    pairing config decide_flips marked FLIP). Standalone pairing wins
-    (bunny +5.3%, shadows +2.5%, cubes +2.6%) sat at/below the 3% relay
-    noise floor and would not alone have flipped the default. RPT_PAIR=0
-    disables; read at trace time (A/B via one process per mode, like
-    RPT_SHADOW_CULL)."""
-    return os.environ.get("RPT_PAIR", "1").strip() != "0"
-
-
 def _mask_invalid_lanes(d, o, valid):
     """Replace masked lanes' (garbage) rays with the block mean so they
     cannot blow up the block bounding cones. d/o: (3, n_blocks, nb)."""
@@ -145,7 +135,7 @@ def _mask_invalid_lanes(d, o, valid):
 def _cone_cull(spheres, d, o):
     """Cone-vs-sphere culling for one ray-block set against one chunk pool.
 
-    spheres: (n_chunks, 4); d/o: (3, n_blocks, NB) dirs / origins.
+    spheres: (n_chunks, 4); d/o: (3, n_blocks, nb) dirs / origins.
     Returns (mind (n_blocks, n_chunks) conservative min distances,
              overlap (n_blocks, n_chunks) bool).
     """
@@ -171,219 +161,32 @@ def _cone_cull(spheres, d, o):
     return mind, overlap
 
 
+NBKT = 16  # distance buckets of the front-to-back order
+
+
 def bucket_order(mind, overlap):
     """Approximate front-to-back compaction of live chunks per block.
 
-    mind/overlap: (n_blocks, n_chunks). Returns rank-3 (order, key, counts)
-    as consumed by the kernels' SMEM windows; `key` holds each chunk's
-    bucket FLOOR (see below), keyed by CHUNK ID (look up through `order`).
+    mind/overlap: (n_blocks, n_chunks). Returns (order (B, C) i32 live chunk
+    ids first, key (B, C) f32 each chunk's bucket FLOOR keyed by CHUNK ID
+    (look up through `order`), counts (B,) i32 live chunks per block).
+
+    Early termination only needs APPROXIMATE front-to-back order, so chunks
+    are ordered by distance bucket (a stable sort keeps chunk-id order
+    within a bucket). The kernels' early-termination test compares the NEXT
+    chunk's key against the block bound, assuming keys are non-decreasing
+    along `order`; publishing each chunk's bucket floor (<= its true mind,
+    constant within a bucket) makes stopping on keys sound.
     """
-    n_chunks = mind.shape[1]
-    # Bucketed counting sort instead of argsort (XLA's sort costs ~1.6ms per
-    # call here; early termination only needs APPROXIMATE front-to-back).
-    NBKT = 16
     lo_k = jnp.min(mind, axis=1, keepdims=True)
     hi_k = jnp.max(jnp.where(overlap, mind, -INF), axis=1, keepdims=True)
     span = jnp.maximum(hi_k - lo_k, 1e-6)
     bucket = jnp.clip(((mind - lo_k) / span * (NBKT - 1)).astype(jnp.int32), 0, NBKT - 1)
-    # The kernels' early-termination test compares the NEXT chunk's distance
-    # against the block bound, assuming distances are non-decreasing along
-    # `order`. The counting sort orders by bucket only, so publish each
-    # chunk's BUCKET FLOOR (<= its true mind, constant within a bucket, and
-    # non-decreasing along the order) -- stopping on floors can never skip a
-    # chunk whose true mind is within the bound.
     key = lo_k + bucket.astype(jnp.float32) * (span / (NBKT - 1))
     bucket = jnp.where(overlap, bucket, NBKT)  # dead chunks go last
-
-    onehot_b = (
-        bucket[:, :, None] == jnp.arange(NBKT + 1)[None, None, :]
-    )  # (B, C, NBKT+1)
-    per_bucket = jnp.sum(onehot_b, axis=1)  # (B, NBKT+1)
-    offsets = jnp.cumsum(per_bucket, axis=1) - per_bucket  # exclusive
-    rank = jnp.sum(
-        jnp.cumsum(onehot_b, axis=1) * onehot_b, axis=2
-    ) - 1  # stable rank within own bucket
-    pos = jnp.sum(jnp.where(onehot_b, offsets[:, None, :], 0), axis=2) + rank  # (B, C)
-
-    # invert the permutation via a one-hot sum (scatter lowers slower);
-    # minds stay keyed by CHUNK ID -- the kernels look them up through order.
-    ppos = pos[:, :, None] == jnp.arange(n_chunks)[None, None, :]  # (B, C, C)
-    ids = jnp.arange(n_chunks, dtype=jnp.int32)
-    order = jnp.sum(jnp.where(ppos, ids[None, :, None], 0), axis=1).astype(jnp.int32)
+    order = jnp.argsort(bucket, axis=1, stable=True).astype(jnp.int32)
     counts = jnp.sum(overlap, axis=1).astype(jnp.int32)
-    # rank-3 so per-block rows can be SMEM-windowed by the grid
-    return order[:, None, :], key[:, None, :], counts[:, None, None]
-
-
-def pack_bits(overlap):
-    """(B, C) bool -> (B, ceil(C/32)) int32 bitmask (bit k of word w = chunk
-    w*32+k). Distinct powers of two: the int32 sum is an exact OR (bit 31
-    lands on the sign bit, which the kernel's arithmetic-shift read handles)."""
-    B, C = overlap.shape
-    W32 = -(-C // 32)
-    pad = W32 * 32 - C
-    ov = jnp.pad(overlap, ((0, 0), (0, pad)))
-    weights = (jnp.int32(1) << jnp.arange(32, dtype=jnp.int32))  # [.., -2^31]
-    return jnp.sum(jnp.where(ov.reshape(B, W32, 32), weights[None, None, :], 0),
-                   axis=2).astype(jnp.int32)
-
-
-def _walk_scaffold(order_ref, count_ref, bits_ref, C, S):
-    """Shared cursor machinery: bit test, position->chunk, skip-advance."""
-    n_live = count_ref[0, 0, 0]
-    end = n_live * S
-
-    def chunk_at(p):
-        return order_ref[0, 0, p // S] * S + (p % S)
-
-    def live(p):
-        # Clamp: `&` is not short-circuit, so advance's cond evaluates
-        # live(end) -- with every super live that would read
-        # order_ref[0, 0, n_live], one past the SMEM window.
-        k = chunk_at(jnp.minimum(p, jnp.maximum(end - 1, 0)))
-        return ((bits_ref[0, 0, k >> 5] >> (k & 31)) & 1) != 0
-
-    def advance(p):
-        # next live position >= p (dead chunks cost a few scalar cycles)
-        return jax.lax.while_loop(
-            lambda q: (q < end) & jnp.logical_not(live(q)), lambda q: q + 1, p)
-
-    return n_live, end, chunk_at, advance
-
-
-def _order2_s() -> int:
-    """Two-level live lists for the VMEM-resident kernels (RPT_ORDER2 = S,
-    the chunks-per-superchunk ordering granularity; 0/unset = off).
-
-    bucket_order's permutation inversion is O(C^2) per ray block -- ~40% of
-    the live-list build on bunny-sized chunk pools and growing quadratically
-    with scene size. RPT_ORDER2=S runs the front-to-back ordering on
-    superchunks of S Morton-consecutive chunks (O((C/S)^2)) and keeps the
-    per-chunk cull tightness via the (block, chunk) overlap bitmask + scalar
-    skip-advance walk that the large-mesh tier already proved on chip
-    (mesh_large._walk_scaffold). Early termination coarsens to superchunk
-    bucket floors (floor <= every child chunk's mind, still sound). Read at
-    trace time; A/B like the other knobs (one process per mode, or
-    clear_cache + renderer cache_clear in-process)."""
-    v = os.environ.get("RPT_ORDER2", "").strip()
-    s = int(v) if v else 0
-    if s and s not in (2, 4, 8, 16, 32):
-        # bits words hold 32 chunks: S must divide 32 so the padded tail
-        # positions of the last super stay inside the bitmask (dead bits).
-        raise ValueError(f"RPT_ORDER2 must be one of 2/4/8/16/32, got {v!r}")
-    return s
-
-
-def live_chunk_lists2(spheres, dh_p, o_p, valid=None, lane_bound=None, s=8,
-                      endpoints=None, seg_len=None):
-    """Two-level live lists: super-level front-to-back order + chunk bits.
-
-    Same contract as live_chunk_lists, but ordering (and its O(C^2)
-    inversion) runs on superchunks of `s` consecutive chunks; per-chunk
-    tightness is recovered by a (B, C) overlap bitmask the kernels consult
-    with cheap scalar reads (mesh_large's proven structure, minus the DMA).
-
-    Super-level mind/overlap are REDUCED from the chunk-level cull (min /
-    any over each group of s) rather than culled against super bounding
-    spheres: one cull pass instead of two, and strictly tighter -- the min
-    of child-chunk minds >= the super-sphere cull distance (still a sound
-    early-termination floor for every child), and a super with zero
-    overlapping children drops out entirely even when its union sphere
-    grazes the cone. Group padding reduces as INF / False (dead).
-    Returns (order (B, 1, C_s), minds (B, 1, C_s), counts (B, 1, 1),
-    bits (B, 1, ceil(C/32)))."""
-    mind_c, over_c = _sub_cone_cull(spheres, dh_p, o_p, valid, lane_bound,
-                                    endpoints=endpoints, seg_len=seg_len)
-    B, C = mind_c.shape
-    C_s = -(-C // s)
-    pad = C_s * s - C
-    # mind_c is already INF where over_c is False (see _sub_cone_cull).
-    mind_g = jnp.pad(mind_c, ((0, 0), (0, pad)), constant_values=INF)
-    over_g = jnp.pad(over_c, ((0, 0), (0, pad)))
-    order, minds, counts = bucket_order(
-        jnp.min(mind_g.reshape(B, C_s, s), axis=2),
-        jnp.any(over_g.reshape(B, C_s, s), axis=2))
-    return order, minds, counts, pack_bits(over_c)[:, None, :]
-
-
-def super_spheres_of(spheres, s):
-    """(C, 4) chunk spheres -> (ceil(C/s), 4) per-group bounding spheres.
-
-    Center = the group's sphere-extent box center; radius = max over
-    children of (|center - child_center| + child_radius), so the group
-    sphere CONTAINS every child sphere -- its cone cull distance therefore
-    lower-bounds every child-chunk hit (a sound early-termination floor).
-    Groups are s CONSECUTIVE chunks (Morton order keeps them spatially
-    compact). Pad entries of a ragged last group are masked out."""
-    C = spheres.shape[0]
-    C_s = -(-C // s)
-    pad = C_s * s - C
-    c = jnp.pad(spheres[:, :3], ((0, pad), (0, 0))).reshape(C_s, s, 3)
-    r = jnp.pad(spheres[:, 3], (0, pad)).reshape(C_s, s)
-    real = (jnp.arange(C_s * s).reshape(C_s, s) < C)
-    lo = jnp.min(jnp.where(real[..., None], c - r[..., None], INF), axis=1)
-    hi = jnp.max(jnp.where(real[..., None], c + r[..., None], -INF), axis=1)
-    center = 0.5 * (lo + hi)
-    dist = jnp.sqrt(jnp.sum((c - center[:, None, :]) ** 2, axis=-1))
-    rad = jnp.max(jnp.where(real, dist + r, 0.0), axis=1)
-    return jnp.concatenate([center, rad[:, None]], axis=1)
-
-
-def live_chunk_lists3(spheres, dh_p, o_p, valid=None, lane_bound=None,
-                      s=128, endpoints=None, seg_len=None):
-    """live_chunk_lists2 for VERY large chunk counts (the 1M+-triangle
-    tier): ordering AND distance culling run against SUPER bounding spheres
-    (dense sub-cone work is (n_sub, C/s) instead of (n_sub, C), which at
-    C ~ 40k chunks and 6k sub-cones is ~0.5-1 GB/frame of f32 transients);
-    per-chunk tightness comes from ONE cone-vs-chunk-sphere overlap pass at
-    BLOCK granularity ((B, C) bools, ~30 MB transient at that scale) packed
-    into the same bitmask the kernels already consult.
-
-    vs lists2 the floors are looser (super-sphere distance instead of the
-    min of child culls) and the bits see full-block cones instead of
-    sub-cones -- the price of bounding the build cost; both stay SOUND
-    (the super sphere contains every child, see super_spheres_of; bits are
-    a skip optimization, extra set bits cost work, never correctness).
-    Same output contract as live_chunk_lists2."""
-    ssph = super_spheres_of(spheres, s)
-    mind_s, over_s = _sub_cone_cull(ssph, dh_p, o_p, valid, lane_bound,
-                                    endpoints=endpoints, seg_len=seg_len)
-    order, minds, counts = bucket_order(mind_s, over_s)
-    B = dh_p.shape[1] // NB
-    d = dh_p.reshape(3, B, NB)
-    o = o_p.reshape(3, B, NB)
-    if valid is not None:
-        d, o = _mask_invalid_lanes(d, o, valid)
-    _, over_c = _cone_cull(spheres, d, o)
-    if endpoints is not None:
-        # Reversed block cones for the chunk bits too (see _sub_cone_cull):
-        # at XL scale the bits are the per-chunk skip mechanism, so shadow
-        # tightness here is where the lever pays.
-        e = endpoints.reshape(3, B, NB)
-        if valid is not None:
-            _, e = _mask_invalid_lanes(d, e, valid)
-        dr = o - e
-        dr = dr / jnp.maximum(jnp.sqrt(jnp.sum(dr * dr, axis=0)), 1e-12)
-        mind_rc, over_rc = _cone_cull(spheres, dr, e)
-        if seg_len is not None:
-            sl = seg_len.reshape(B, NB)
-            if valid is not None:
-                sl = jnp.where(valid.reshape(B, NB), sl, 0.0)
-            over_rc = over_rc & (mind_rc <= jnp.max(sl, axis=1)[:, None] + 1e-3)
-        over_c = over_c & over_rc
-    if valid is not None:
-        # A block with zero valid lanes gets a degenerate cone that reads
-        # as overlaps-everything; its lanes cannot hit anything.
-        has_valid = jnp.any(valid.reshape(B, NB), axis=1)
-        over_c = over_c & has_valid[:, None]
-    # s > 32: the walk's position->chunk map reaches ids up to C_s*s-1
-    # (pad positions of a ragged last super), which can exceed the
-    # ceil(C/32)-word mask that s | 32 guarantees stays in-window
-    # (_walk_scaffold.live). Pad the bit columns to the super-aligned
-    # width; pad bits are zero, so the skip-advance hops them as dead.
-    C_s = -(-spheres.shape[0] // s)
-    over_c = jnp.pad(over_c, ((0, 0), (0, C_s * s - spheres.shape[0])))
-    return order, minds, counts, pack_bits(over_c)[:, None, :]
+    return order, key, counts
 
 
 def live_chunk_lists(spheres, dh_p, o_p, valid=None, lane_bound=None,
@@ -402,9 +205,7 @@ def live_chunk_lists(spheres, dh_p, o_p, valid=None, lane_bound=None,
     every lane's search bound, so dropping it is exact. Bounded culling both
     shortens live lists and tightens the bucket spans the early-termination
     floors are quantized on.
-    Returns (order (n_blocks, n_chunks) i32 front-to-back live chunk ids,
-             minds (n_blocks, n_chunks) f32 sorted chunk min-distances,
-             counts (n_blocks, 1) i32 live counts).
+    Returns bucket_order's (order, key, counts) per NB-lane block.
     """
     mind, overlap = _sub_cone_cull(spheres, dh_p, o_p, valid, lane_bound,
                                    endpoints=endpoints, seg_len=seg_len)
@@ -413,12 +214,11 @@ def live_chunk_lists(spheres, dh_p, o_p, valid=None, lane_bound=None,
 
 def _sub_cone_cull(spheres, dh_p, o_p, valid=None, lane_bound=None,
                    endpoints=None, seg_len=None):
-    """Cull at SUB-cone granularity (NB/SUB-lane groups -- compact 16x16
-    pixel quads under the renderer's quadrant swizzle), then reduce to the
-    kernels' NB-lane blocks: overlap = any sub overlaps, mind = min over
-    overlapping subs (sound: lanes of a non-overlapping sub cannot hit the
-    chunk, so excluding their sub from the bound loses nothing). Sub-cones
-    have ~half the apex radius and angular spread of a full-block cone,
+    """Cull at SUB-cone granularity (NB/SUB-lane groups), then reduce to
+    NB-lane blocks: overlap = any sub overlaps, mind = min over overlapping
+    subs (sound: lanes of a non-overlapping sub cannot hit the chunk, so
+    excluding their sub from the bound loses nothing). Sub-cones have a
+    fraction of the apex radius and angular spread of a full-block cone,
     which is what defeats the fat near-apex cones of surface-origin shadow
     blocks. endpoints: optional (3, n_pad) per-lane segment endpoints (the
     light position for shadow rays) -- adds a REVERSED cone test (apex at
@@ -476,291 +276,6 @@ def _sub_cone_cull(spheres, dh_p, o_p, valid=None, lane_bound=None,
     return jnp.min(mind_s, axis=1), jnp.any(over_s, axis=1)
 
 
-def chunk_interleave(grouped, T_pad, nf, tc):
-    """Relayout factor-grouped constants [f0(T_pad); f1; ...] into per-chunk
-    interleaved rows [f0_chunk0; f1_chunk0; ...; f0_chunk1; ...].
-
-    One (nf*tc, cols) slice then feeds a SINGLE MXU product per chunk: at
-    these shapes each dot_general streams all NB ray columns through the
-    systolic array regardless of row count, so nf separate (tc, cols)
-    products cost ~nf times one (nf*tc, cols) product.
-    """
-    cols = grouped.shape[1]
-    g = grouped.reshape(nf, T_pad // tc, tc, cols)
-    return g.transpose(1, 0, 2, 3).reshape(nf * T_pad, cols)
-
-
-def split_bf16(x):
-    """Hi/lo bf16 decomposition along the last axis: returns
-    concat([hi, lo], -1) with hi = f32(bf16(x)), lo = x - hi. hi is exactly
-    bf16-representable, so a DEFAULT-precision (bf16-pass) MXU product
-    against an exact operand (e.g. a 0/1 one-hot) computes the hi term
-    exactly; the lo term is itself bf16-rounded by its pass, leaving a
-    ~|x| * 2^-16 residual -- i.e. the two-dot sum recovers ~16 mantissa
-    bits, ample for normal/uv attributes consumed at 1e-3 tolerance."""
-    hi = x.astype(jnp.bfloat16).astype(jnp.float32)
-    return jnp.concatenate([hi, x - hi], axis=-1)
-
-
-def _mt_mask(det, u, v, dist, tri_ok):
-    return (
-        (jnp.abs(det) >= EPSILON)
-        & (u >= 0.0) & (u <= 1.0)
-        & (v >= 0.0) & (u + v <= 1.0)
-        & (dist >= 0.0) & tri_ok
-    )
-
-
-def _shared_kernel(order_ref, minds_ref, count_ref, box_ref, consts_ref,
-                   attr_ref, dh_ref, *refs,
-                   T: int, T_pad: int, pair: bool = False, s2: int = 0):
-    """Iterate this block's live chunks (front-to-back) with a while loop
-    of dynamic trip count -- culled chunks genuinely cost nothing, and the
-    walk stops early once every lane's current bound is nearer than the next
-    chunk. order/minds/count arrive as per-block (1, 1, n_chunks) SMEM
-    windows (rank-3: leading dims may be blocked freely); box_ref holds
-    [union-box lo(3), hi(3), shared origin ro(3)] scalars in SMEM.
-
-    s2 > 0 (RPT_ORDER2): order/minds/count are SUPERCHUNK-level (windows
-    sized C/s2) and a per-chunk bitmask arrives as the first extra ref; the
-    cursor walks super-ordered chunk POSITIONS with the large tier's scalar
-    skip-advance (see _walk_scaffold / _order2_s)."""
-    if s2:
-        bits_ref, t_ref, u_ref, v_ref, tri_ref, attr_out_ref = refs
-    else:
-        t_ref, u_ref, v_ref, tri_ref, attr_out_ref = refs
-    dh = dh_ref[:]  # (3, NB)
-    nb = dh.shape[1]
-    n_live = count_ref[0, 0, 0]
-    if s2:
-        C_total = T_pad // TC
-        _, end, chunk_at, advance = _walk_scaffold(order_ref, count_ref,
-                                                   bits_ref, C_total, s2)
-
-    # Per-lane search bound: slab far-distance vs the union box of all chunk
-    # spheres (0 for rays that miss it -> their lanes never extend the walk).
-    # Fused here (scalar box + resident dh) instead of a separate XLA pass:
-    # the standalone version cost ~1ms/frame in HBM round-trips.
-    far = jnp.full((nb,), INF, jnp.float32)
-    near = jnp.full((nb,), -INF, jnp.float32)
-    for ax in range(3):
-        inv = _safe_inv(dh[ax])
-        t0 = (box_ref[0, ax] - box_ref[0, 6 + ax]) * inv
-        t1 = (box_ref[0, 3 + ax] - box_ref[0, 6 + ax]) * inv
-        near = jnp.maximum(near, jnp.minimum(t0, t1))
-        far = jnp.minimum(far, jnp.maximum(t0, t1))
-    hits_box = (near <= far) & (far > 0)
-    bound_vec = jnp.where(hits_box, far * 1.001 + 1e-3, 0.0)
-
-    def cond(state):
-        # STRICT inequality: a hit at dist == mb cannot beat any lane's
-        # min(best_t, bound) -- and chunks at floor 0 must not keep a block
-        # alive once every lane's bound is 0.
-        j, mb = state[0], state[1]
-        if s2:
-            # j is a super-ordered chunk POSITION; the floor is its super's
-            # (clamped: j == end when the walk is exhausted).
-            sid = order_ref[0, 0, jnp.minimum(j // s2, minds_ref.shape[2] - 1)]
-            return (j < end) & (minds_ref[0, 0, sid] < mb)
-        return (j < n_live) & (minds_ref[0, 0, order_ref[0, 0, j]] < mb)
-
-    def chunk_uvdist(k, live):
-        """One chunk's Moller-Trumbore candidates: (u, v, dist) each (Tc, NB);
-        dist is INF outside the acceptance mask (or everywhere when the
-        traced scalar `live` is False -- the duplicate half of an odd-count
-        pair)."""
-        base = k * TC
-        # Per-chunk INTERLEAVED det/u/v rows (see chunk_interleave).
-        blk = consts_ref[pl.ds(3 * base, 3 * TC), :]
-        ct = consts_ref[pl.ds(3 * T_pad + base, TC), 0]  # (Tc,)
-
-        # K=3 contraction as 9 explicit (Tc, NB) VPU broadcast-FMAs: the MXU
-        # alternatives are either lossy (DEFAULT lowers f32 to bf16 passes --
-        # broke full-res oracle parity) or 3-6x slower (HIGHEST, which the
-        # renderer's default_matmul_precision("highest") otherwise imposes on
-        # in-kernel dots too). VPU FMAs are exact f32 at ~the lossy path's
-        # speed; at K=3 the MXU has no arithmetic advantage.
-        det = (blk[0:TC, 0:1] * dh[0:1] + blk[0:TC, 1:2] * dh[1:2]
-               + blk[0:TC, 2:3] * dh[2:3])
-        u_num = (blk[TC:2 * TC, 0:1] * dh[0:1] + blk[TC:2 * TC, 1:2] * dh[1:2]
-                 + blk[TC:2 * TC, 2:3] * dh[2:3])
-        v_num = (blk[2 * TC:, 0:1] * dh[0:1] + blk[2 * TC:, 1:2] * dh[1:2]
-                 + blk[2 * TC:, 2:3] * dh[2:3])
-        inv_det = 1.0 / det
-        u = u_num * inv_det
-        v = v_num * inv_det
-        dist = ct[:, None] * inv_det
-        tri_ok = (base + jax.lax.broadcasted_iota(jnp.int32, (TC, nb), 0)) < T
-        ok = _mt_mask(det, u, v, dist, tri_ok) & live
-        return u, v, jnp.where(ok, dist, INF)
-
-    def body(state):
-        if s2:
-            # trailing cnt: chunks PROCESSED (the position cursor j includes
-            # skipped dead slots, so it is not a work count like order1's j)
-            j, mb, best_t, best_u, best_v, best_tri, best_attr, cnt = state
-            k0 = chunk_at(j)
-            j1 = advance(j + 1)  # next live position (or end)
-            j_next = advance(j1 + 1) if pair else j1
-        else:
-            j, mb, best_t, best_u, best_v, best_tri, best_attr = state
-            k0 = order_ref[0, 0, j]
-            j_next = j + (2 if pair else 1)
-        if pair:
-            # Two live chunks per iteration (see _pair_mode). Odd tail: k1
-            # duplicates a live chunk with live=False, masking its
-            # candidates to INF.
-            if s2:
-                live1 = j1 < end
-                k1 = jnp.minimum(
-                    chunk_at(jnp.minimum(j1, jnp.maximum(end - 1, 0))),
-                    C_total - 1)  # clamped in-bounds consts read when dead
-            else:
-                live1 = (j + 1) < n_live
-                k1 = order_ref[0, 0, jnp.minimum(j + 1, n_live - 1)]
-            u0, v0, d0 = chunk_uvdist(k0, True)
-            u1, v1, d1 = chunk_uvdist(k1, live1)
-            u = jnp.concatenate([u0, u1], axis=0)
-            v = jnp.concatenate([v0, v1], axis=0)
-            dist = jnp.concatenate([d0, d1], axis=0)
-        else:
-            u, v, dist = chunk_uvdist(k0, True)
-        rows = dist.shape[0]  # TC or 2*TC
-        dmin = jnp.min(dist, axis=0)
-        better = dmin < best_t
-        idx = jnp.argmin(dist, axis=0)  # (NB,)
-        onehot = jax.lax.broadcasted_iota(jnp.int32, (rows, nb), 0) == idx[None, :]
-        onehot_f = jnp.where(onehot, 1.0, 0.0)
-        umin = jnp.sum(jnp.where(onehot, u, 0.0), axis=0)
-        vmin = jnp.sum(jnp.where(onehot, v, 0.0), axis=0)
-        # Interpolation-ready attributes of the winning triangle via TWO
-        # one-hot MXU products at DEFAULT precision on a hi/lo bf16 SPLIT of
-        # the attr values (see split_bf16: recovers ~16 mantissa bits).
-        # A single f32 dot is either bf16-truncated (DEFAULT) or 3x slower
-        # (HIGHEST); a Tc-step VPU accumulation costs ~1us/iteration.
-        if pair:
-            attrs = jnp.concatenate(
-                [attr_ref[pl.ds(k0 * TC, TC), :], attr_ref[pl.ds(k1 * TC, TC), :]],
-                axis=0)  # (2Tc, 30) [hi | lo]
-            tri_id = jnp.where(idx < TC, k0 * TC + idx, k1 * TC + (idx - TC))
-        else:
-            attrs = attr_ref[pl.ds(k0 * TC, TC), :]  # (Tc, 30) [hi | lo]
-            tri_id = k0 * TC + idx
-        attr_sel = (
-            jax.lax.dot_general(attrs[:, :N_ATTR], onehot_f,
-                                (((0,), (0,)), ((), ())),
-                                preferred_element_type=jnp.float32,
-                                precision=jax.lax.Precision.DEFAULT)
-            + jax.lax.dot_general(attrs[:, N_ATTR:], onehot_f,
-                                  (((0,), (0,)), ((), ())),
-                                  preferred_element_type=jnp.float32,
-                                  precision=jax.lax.Precision.DEFAULT)
-        )  # (15, NB)
-        new_t = jnp.where(better, dmin, best_t)
-        out = (
-            j_next,
-            jnp.max(jnp.minimum(new_t, bound_vec)),
-            new_t,
-            jnp.where(better, umin, best_u),
-            jnp.where(better, vmin, best_v),
-            jnp.where(better, tri_id, best_tri),
-            jnp.where(better[None, :], attr_sel, best_attr),
-        )
-        return out + (cnt + (2 if pair else 1),) if s2 else out
-
-    init = (
-        advance(jnp.int32(0)) if s2 else jnp.int32(0),
-        # Start from the block's true bound (not INF): blocks whose every
-        # lane misses the union box (bound 0) run ZERO chunk iterations.
-        jnp.max(bound_vec),
-        jnp.full((nb,), INF, jnp.float32),
-        jnp.zeros((nb,), jnp.float32),
-        jnp.zeros((nb,), jnp.float32),
-        jnp.full((nb,), -1, jnp.int32),
-        jnp.zeros((N_ATTR, nb), jnp.float32),
-    ) + ((jnp.int32(0),) if s2 else ())
-    st = jax.lax.while_loop(cond, body, init)
-    jf, _, bt, bu, bv, btri, battr = st[:7]
-    t_ref[0, :] = bt
-    if t_ref.shape[0] > 1:  # debug: chunks processed (both modes)
-        t_ref[1, :] = jnp.full((dh.shape[1],),
-                               st[7] if s2 else jf, jnp.float32)
-    u_ref[0, :] = bu
-    v_ref[0, :] = bv
-    tri_ref[0, :] = btri
-    attr_out_ref[:, :] = battr
-
-
-@functools.partial(jax.jit, static_argnames=("interpret", "debug_iters"))
-def shared_nearest_hit(consts, c_t, attrs, spheres, dh, ro, interpret=False,
-                       debug_iters=False):
-    """consts: (3*T_pad, 3); c_t: (T_pad,); attrs: (15, T_pad);
-    spheres: (n_chunks, 4); dh: (3, N) unit object-space dirs; ro: (3,).
-
-    Returns (best_t, best_u, best_v, best_tri, attr (15, N)); best_tri is -1
-    where no triangle was hit. interpret=True runs the kernel in Pallas
-    interpret mode (CPU-testable production path).
-    """
-    T_pad = c_t.shape[0]
-    n = dh.shape[1]
-    n_pad = _round_up(n, NB)
-    dh_p = jnp.pad(dh, ((0, 0), (0, n_pad - n)), constant_values=1.0)
-    ro_p = jnp.broadcast_to(ro[:, None], (3, n_pad))
-    # Interleave det/u/v per chunk (ct block stays appended at 3*T_pad).
-    consts = jnp.concatenate(
-        [chunk_interleave(consts[:3 * T_pad], T_pad, 3, TC), consts[3 * T_pad:]],
-        axis=0)
-    attrs = split_bf16(attrs)  # (T_pad, 30) [hi | lo] for exact DEFAULT dots
-    s2 = _order2_s()
-    if s2:
-        order, minds, counts, bits = live_chunk_lists2(spheres, dh_p, ro_p,
-                                                       s=s2)
-    else:
-        order, minds, counts = live_chunk_lists(spheres, dh_p, ro_p)
-    lo = jnp.min(spheres[:, :3] - spheres[:, 3:4], axis=0)
-    hi = jnp.max(spheres[:, :3] + spheres[:, 3:4], axis=0)
-    box = jnp.concatenate([lo, hi, ro])[None, :]  # (1, 9) scalars
-
-    kernel = functools.partial(_shared_kernel, T=T_pad, T_pad=T_pad,
-                               pair=_pair_mode(), s2=s2)
-    t_rows = 2 if debug_iters else 1
-    out_vec = pl.BlockSpec((1, NB), lambda i: (0, i), memory_space=pltpu.VMEM)
-    smem_win = lambda w: pl.BlockSpec((1, 1, w), lambda i: (i, 0, 0),  # noqa: E731
-                                      memory_space=pltpu.SMEM)
-    list_specs = [smem_win(order.shape[2]), smem_win(minds.shape[2]),
-                  smem_win(1)]
-    list_args = [order, minds, counts]
-    if s2:
-        list_specs.append(smem_win(bits.shape[2]))
-        list_args.append(bits)
-    bt, bu, bv, btri, battr = pl.pallas_call(
-        kernel,
-        grid=(n_pad // NB,),
-        in_specs=list_specs[:3] + [
-            pl.BlockSpec((1, 9), lambda i: (0, 0), memory_space=pltpu.SMEM),
-            pl.BlockSpec((consts.shape[0], 3), lambda i: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((T_pad, 2 * N_ATTR), lambda i: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((3, NB), lambda i: (0, i), memory_space=pltpu.VMEM),
-        ] + list_specs[3:],
-        out_specs=(pl.BlockSpec((t_rows, NB), lambda i: (0, i), memory_space=pltpu.VMEM),
-                   out_vec, out_vec, out_vec,
-                   pl.BlockSpec((N_ATTR, NB), lambda i: (0, i), memory_space=pltpu.VMEM)),
-        out_shape=(
-            jax.ShapeDtypeStruct((t_rows, n_pad), jnp.float32,
-                                 vma=ray_vma(dh_p)),
-            jax.ShapeDtypeStruct((1, n_pad), jnp.float32, vma=ray_vma(dh_p)),
-            jax.ShapeDtypeStruct((1, n_pad), jnp.float32, vma=ray_vma(dh_p)),
-            jax.ShapeDtypeStruct((1, n_pad), jnp.int32, vma=ray_vma(dh_p)),
-            jax.ShapeDtypeStruct((N_ATTR, n_pad), jnp.float32,
-                                 vma=ray_vma(dh_p)),
-        ),
-        interpret=interpret,
-    )(*list_args[:3], box, consts, attrs, dh_p, *list_args[3:])
-    if debug_iters:
-        return bt[0, :n], bu[0, :n], bv[0, :n], btri[0, :n], battr[:, :n], bt[1, ::NB]
-    return bt[0, :n], bu[0, :n], bv[0, :n], btri[0, :n], battr[:, :n]
-
-
 def _revcone_on() -> bool:
     """REVERSED-cone shadow culling (RPT_REVCONE=1, trace-time).
 
@@ -772,17 +287,14 @@ def _revcone_on() -> bool:
     tight exactly where the forward cone is weakest ("the fat near-apex
     cones of surface-origin shadow blocks", _sub_cone_cull). A chunk must
     overlap BOTH cones (and lie within the light's maximum segment length)
-    to stay live. Output is BIT-IDENTICAL: the general kernels clamp their
+    to stay live. Output is BIT-IDENTICAL: the general kernel clamps its
     result at tmax, and every hit below tmax lies ON its lane's segment,
     which both cones contain (see test_revcone_exact).
 
-    MEASURED round 5 (ROUND5_LEVERS.json, on-chip, exact: max_diff 0.0):
-    LOSS on both mesh-shadow scenes -- bunny 7.09 -> 7.53 ms, shadows
-    7.00 -> 7.54 ms. Both corpus lights sit CLOSE to their meshes, so the
-    patch subtends a wide angle from the light and the reversed cone culls
-    ~nothing, while the second dense cull pass doubles the shadow
-    list-build cost. Stays opt-in for far-light scenes (the synthetic
-    regime where test_revcone_shrinks_live_lists proves the shrink)."""
+    Off by default: when the light sits close to the mesh the patch
+    subtends a wide angle from the light, the reversed cone culls ~nothing,
+    and the second dense cull pass doubles the shadow list-build cost. Its
+    gain on the card is not measured."""
     return os.environ.get("RPT_REVCONE", "").strip() == "1"
 
 
@@ -793,164 +305,188 @@ def _shadow_cull_mode() -> str:
     distance from the chunk-sphere union box) -- the same cap the kernel
     applies to its walk, so list construction and walk agree.
     "tmax": cull with the raw caller bound only (no extra slab pass).
-    "none": round-3 behavior (unbounded cull). Overridable per process via
-    RPT_SHADOW_CULL for on-chip A/B; read at trace time."""
+    "none": unbounded cull. Overridable per process via RPT_SHADOW_CULL;
+    read at trace time."""
     v = os.environ.get("RPT_SHADOW_CULL", "").strip()
     return v if v in ("none", "tmax", "boxfar") else "boxfar"
 
 
-def _general_lane_bound(tmax_lanes, r10_p, lo, hi):
-    """Per-lane culling bound for live_chunk_lists (see _shadow_cull_mode).
-
-    Mirrors the in-kernel tmax_eff: min(tmax, union-box far exit), with the
-    same margins, so culling never drops a chunk the walk could still use."""
-    mode = _shadow_cull_mode()
-    if mode == "none":
-        return None
-    if mode == "tmax":
-        return tmax_lanes
-    far = jnp.full_like(tmax_lanes, INF)
-    near = jnp.full_like(tmax_lanes, -INF)
-    for ax in range(3):
-        inv = _safe_inv(r10_p[ax])
-        t0 = (lo[ax] - r10_p[6 + ax]) * inv
-        t1 = (hi[ax] - r10_p[6 + ax]) * inv
-        near = jnp.maximum(near, jnp.minimum(t0, t1))
-        far = jnp.minimum(far, jnp.maximum(t0, t1))
-    hits_box = (near <= far) & (far > 0)
-    return jnp.minimum(tmax_lanes,
-                       jnp.where(hits_box, far * 1.001 + 1e-3, 0.0))
+def shared_rows(consts, T_pad):
+    """(4*T_pad, 3) factor-grouped shared-origin constants
+    (ops.mesh_intersect.shared_origin_constants) -> (SHARED_ROWS, T_pad)
+    factor-major rows, so one chunk's coefficient is a contiguous load."""
+    rows = consts.reshape(4, T_pad, 3).transpose(0, 2, 1).reshape(12, T_pad)
+    return rows[:SHARED_ROWS]
 
 
-def _general_kernel(order_ref, minds_ref, count_ref, box_ref, cols_ref,
-                    r10_ref, tmax_ref, *refs, T: int, T_pad: int,
-                    pair: bool = False, s2: int = 0):
-    if s2:
-        bits_ref, t_ref = refs
-    else:
-        (t_ref,) = refs
-    TC = TC_GEN
-    r10 = r10_ref[:]  # (10, NB)
-    nb = r10.shape[1]
-    n_live = count_ref[0, 0, 0]
-    if s2:
-        C_total = T_pad // TC
-        _, end, chunk_at, advance = _walk_scaffold(order_ref, count_ref,
-                                                   bits_ref, C_total, s2)
-    tmax = tmax_ref[0, :]
-    # Occlusion-retirement threshold (see general_min_t): shadow callers only
-    # consume `occ_t >= tmax`, so a lane holding ANY hit strictly below tcut
-    # is definitively occluded and stops extending the block's walk bound --
-    # it no longer needs the exact nearest hit. tcut == 0 (min-t callers,
-    # masked lanes) never retires.
-    tcut = tmax_ref[1, :]
+def general_rows(cols, T_pad):
+    """(4*T_pad, 10) factor-grouped Plucker operators
+    (ops.mesh_intersect.general_ray_constants) -> (GENERAL_ROWS, T_pad)
+    factor-major rows keeping only each factor's nonzero columns (det uses
+    r10[0:3], u/v r10[0:6], t r10[6:10])."""
+    g = cols.reshape(4, T_pad, 10).transpose(0, 2, 1)  # (4, 10, T_pad)
+    return jnp.concatenate([g[0, 0:3], g[1, 0:6], g[2, 0:6], g[3, 6:10]],
+                           axis=0)
 
-    # Per-lane walk bound: min(tmax, union-box exit). Every chunk lies inside
-    # the union box of the chunk spheres, so a ray that leaves the box has
-    # seen every possible occluder -- for shadow rays from the mesh's own
-    # surface this caps LIT lanes (the expensive ones: they must otherwise
-    # prove no occluder exists all the way to the light) at the box exit
-    # distance instead of the light distance. The RESULT is still
-    # min(best_t, tmax): truncating the search at the box exit is exact
-    # because no hit can exist beyond it.
-    far = jnp.full((nb,), INF, jnp.float32)
-    near = jnp.full((nb,), -INF, jnp.float32)
-    for ax in range(3):
-        inv = _safe_inv(r10[ax])
-        t0 = (box_ref[0, ax] - r10[6 + ax]) * inv
-        t1 = (box_ref[0, 3 + ax] - r10[6 + ax]) * inv
-        near = jnp.maximum(near, jnp.minimum(t0, t1))
-        far = jnp.minimum(far, jnp.maximum(t0, t1))
-    hits_box = (near <= far) & (far > 0)
-    tmax_eff = jnp.minimum(tmax, jnp.where(hits_box, far * 1.001 + 1e-3, 0.0))
+
+def _accept(det, u, v, dist):
+    return ((jnp.abs(det) >= EPSILON)
+            & (u >= 0.0) & (u <= 1.0)
+            & (v >= 0.0) & (u + v <= 1.0)
+            & (dist >= 0.0))
+
+
+def _walk(order_ref, minds_ref, count_ref, mb0, carry, step):
+    """Walk this program's live-chunk list front to back.
+
+    The list belongs to the NB-lane block that holds the program's rays.
+    step(k, carry) -> (mb, carry) processes chunk k and returns the
+    program's new search bound (the max over its lanes). The loop stops at
+    the end of the list, or once the next chunk's bucket floor is not
+    STRICTLY below the bound (a hit at dist == mb cannot improve any lane,
+    and floor-0 chunks must not keep a block alive once every bound is 0).
+    """
+    b = pl.program_id(0) // (NB // RAYS)
+    n_live = count_ref[b]
+    last = order_ref.shape[1] - 1
 
     def cond(state):
-        # Strict < : see _shared_kernel. Critical for shadow blocks whose
-        # lanes all carry tmax == 0 (masked-irrelevant): chunk floors of 0
-        # must not keep the walk alive.
         j, mb = state[0], state[1]
-        if s2:
-            sid = order_ref[0, 0, jnp.minimum(j // s2, minds_ref.shape[2] - 1)]
-            return (j < end) & (minds_ref[0, 0, sid] < mb)
-        return (j < n_live) & (minds_ref[0, 0, order_ref[0, 0, j]] < mb)
+        k = order_ref[b, jnp.minimum(j, last)]  # & does not short-circuit
+        return (j < n_live) & (minds_ref[b, k] < mb)
 
-    def chunk_min(k, live):
-        """One chunk's per-lane min candidate distance (INF when `live` is
-        the traced-False duplicate half of an odd-count pair)."""
-        base = k * TC
-        # Structured VPU FMAs instead of one (4*Tc, 10) MXU pass: the
-        # factor operators are sparse in the Plucker lift (det uses r10[0:3],
-        # u/v use [0:6], t uses [6:10] -- see general_ray_constants), so 19
-        # exact (Tc, NB) FMAs replace a 40-row-equivalent dense product that
-        # is lossy at DEFAULT (bf16 passes) and 2x slower at HIGHEST.
-        blk = cols_ref[pl.ds(4 * base, 4 * TC), :]  # (4Tc, 10)
+    def body(state):
+        j = state[0]
+        mb, carry = step(order_ref[b, j], state[2:])
+        return (j + 1, mb) + tuple(carry)
 
-        def fma(rows, lo, hi):
-            acc = rows[:, lo:lo + 1] * r10[lo:lo + 1]
-            for c in range(lo + 1, hi):
-                acc = acc + rows[:, c:c + 1] * r10[c:c + 1]
+    return jax.lax.while_loop(cond, body, (jnp.int32(0), mb0) + tuple(carry))[2:]
+
+
+def _shared_kernel(order_ref, minds_ref, count_ref, rows_ref, dh_ref,
+                   bound_ref, t_ref, tri_ref):
+    dx = dh_ref[0, :][None, :]  # (1, RAYS)
+    dy = dh_ref[1, :][None, :]
+    dz = dh_ref[2, :][None, :]
+    bound = bound_ref[:]
+
+    def step(k, carry):
+        best_t, best_tri = carry
+        base = pl.multiple_of(k * TC, TC)
+
+        def c(r):  # (TC, 1) column of coefficient row r for this chunk
+            return rows_ref[r, pl.ds(base, TC)][:, None]
+
+        det = c(0) * dx + c(1) * dy + c(2) * dz
+        u_num = c(3) * dx + c(4) * dy + c(5) * dz
+        v_num = c(6) * dx + c(7) * dy + c(8) * dz
+        inv_det = 1.0 / det
+        u = u_num * inv_det
+        v = v_num * inv_det
+        dist = c(9) * inv_det
+        dist = jnp.where(_accept(det, u, v, dist), dist, INF)  # (TC, RAYS)
+        dmin = jnp.min(dist, axis=0)
+        idx = jnp.argmin(dist, axis=0).astype(jnp.int32)  # lowest id at ties
+        better = dmin < best_t
+        best_t = jnp.where(better, dmin, best_t)
+        best_tri = jnp.where(better, base + idx, best_tri)
+        return jnp.max(jnp.minimum(best_t, bound)), (best_t, best_tri)
+
+    # Starting from the block's true bound (not INF): programs whose every
+    # lane misses the union box (bound 0) run ZERO chunk iterations.
+    best_t, best_tri = _walk(
+        order_ref, minds_ref, count_ref, jnp.max(bound),
+        (jnp.full((RAYS,), INF, jnp.float32),
+         jnp.full((RAYS,), -1, jnp.int32)), step)
+    t_ref[:] = best_t
+    tri_ref[:] = best_tri
+
+
+def _general_kernel(order_ref, minds_ref, count_ref, rows_ref, r10_ref,
+                    lim_ref, t_ref):
+    r = [r10_ref[i, :][None, :] for i in range(10)]  # (1, RAYS) each
+    tmax = lim_ref[0, :]
+    tcut = lim_ref[1, :]
+    tmax_eff = lim_ref[2, :]
+
+    def step(k, carry):
+        (best_t,) = carry
+        base = pl.multiple_of(k * TC, TC)
+
+        def fma(row0, lo, hi):
+            acc = rows_ref[row0, pl.ds(base, TC)][:, None] * r[lo]
+            for i in range(lo + 1, hi):
+                acc = acc + rows_ref[row0 + i - lo, pl.ds(base, TC)][:, None] * r[i]
             return acc
 
-        det = fma(blk[0:TC], 0, 3)
-        u_num = fma(blk[TC:2 * TC], 0, 6)
-        v_num = fma(blk[2 * TC:3 * TC], 0, 6)
-        t_num = fma(blk[3 * TC:], 6, 10)
+        det = fma(0, 0, 3)
+        u_num = fma(3, 0, 6)
+        v_num = fma(9, 0, 6)
+        t_num = fma(15, 6, 10)
         inv_det = 1.0 / det
         u = u_num * inv_det
         v = v_num * inv_det
         dist = t_num * inv_det
-        tri_ok = (base + jax.lax.broadcasted_iota(jnp.int32, (TC, nb), 0)) < T
-        ok = _mt_mask(det, u, v, dist, tri_ok) & live
-        return jnp.min(jnp.where(ok, dist, INF), axis=0)
+        dist = jnp.where(_accept(det, u, v, dist), dist, INF)
+        best_t = jnp.minimum(best_t, jnp.min(dist, axis=0))
+        # Search bounded at min(tmax, box exit); lanes already provably
+        # occluded (hit < tcut) no longer extend the walk.
+        live = jnp.where(best_t < tcut, 0.0, jnp.minimum(best_t, tmax_eff))
+        return jnp.max(live), (best_t,)
 
-    def body(state):
-        if s2:
-            j, mb, best_t, cnt = state  # trailing cnt: chunks processed
-            k0 = chunk_at(j)
-            j1 = advance(j + 1)
-            j_next = advance(j1 + 1) if pair else j1
-        else:
-            j, mb, best_t = state
-            k0 = order_ref[0, 0, j]
-            j_next = j + (2 if pair else 1)
-        new_t = jnp.minimum(best_t, chunk_min(k0, True))
-        if pair:
-            # Two live chunks per iteration (see _pair_mode); the odd tail
-            # duplicates a live chunk with live=False (all-INF candidates).
-            if s2:
-                live1 = j1 < end
-                k1 = jnp.minimum(
-                    chunk_at(jnp.minimum(j1, jnp.maximum(end - 1, 0))),
-                    C_total - 1)  # clamped in-bounds cols read when dead
-            else:
-                live1 = (j + 1) < n_live
-                k1 = order_ref[0, 0, jnp.minimum(j + 1, n_live - 1)]
-            new_t = jnp.minimum(new_t, chunk_min(k1, live1))
-        # Search bounded at min(tmax, box exit): occluders beyond either are
-        # irrelevant / impossible, so chunks past the bound stop the walk.
-        # Lanes already provably occluded (hit < tcut) contribute nothing.
-        live_bound = jnp.where(new_t < tcut, 0.0, jnp.minimum(new_t, tmax_eff))
-        out = (j_next, jnp.max(live_bound), new_t)
-        return out + (cnt + (2 if pair else 1),) if s2 else out
-
-    # (A VMEM-loaded VECTOR as loop carry init crashes Mosaic; a scalar
-    # reduce of one is fine.) Starting mb at the block's max bound instead of
-    # INF means blocks whose lanes are all masked-irrelevant (tmax 0) run
-    # ZERO chunk iterations.
-    init = (advance(jnp.int32(0)) if s2 else jnp.int32(0),
-            jnp.max(tmax_eff), jnp.full((nb,), INF, jnp.float32)
-            ) + ((jnp.int32(0),) if s2 else ())
-    st = jax.lax.while_loop(cond, body, init)
-    jf, _, bt = st[:3]
-    t_ref[0, :] = jnp.minimum(bt, tmax)
-    if len(t_ref.shape) > 1 and t_ref.shape[0] > 1:  # debug: chunks processed
-        t_ref[1, :] = jnp.full((nb,), st[3] if s2 else jf, jnp.float32)
+    (best_t,) = _walk(order_ref, minds_ref, count_ref, jnp.max(tmax_eff),
+                      (jnp.full((RAYS,), INF, jnp.float32),), step)
+    t_ref[:] = jnp.minimum(best_t, tmax)
 
 
-@functools.partial(jax.jit, static_argnames=("interpret", "debug_iters"))
-def general_min_t(cols_grouped, spheres, r10, tmax_obj=None, valid=None,
-                  tcut_obj=None, interpret=False, debug_iters=False):
-    """cols_grouped: (4*T_pad, 10) factor-grouped; spheres: (n_chunks, 4);
+def _call(kernel, lists, rows, rays, out_shape, interpret):
+    """pallas_call over RAYS-lane programs: lists and constant rows are read
+    from global memory by index; `rays` are per-lane (k, n_pad) blocks."""
+    n_pad = rays[0].shape[1]
+    vma = ray_vma(*rays)
+    ray_spec = lambda a: pl.BlockSpec((a.shape[0], RAYS), lambda i: (0, i))  # noqa: E731
+    out_spec = pl.BlockSpec((RAYS,), lambda i: (i,))
+    return pl.pallas_call(
+        kernel,
+        grid=(n_pad // RAYS,),
+        in_specs=([pl.no_block_spec] * (len(lists) + 1)
+                  + [ray_spec(a) for a in rays]),
+        out_specs=tuple(out_spec for _ in out_shape),
+        out_shape=tuple(jax.ShapeDtypeStruct((n_pad,), dt, vma=vma)
+                        for dt in out_shape),
+        backend="triton",
+        compiler_params=pltriton.CompilerParams(num_warps=NUM_WARPS,
+                                                num_stages=1),
+        interpret=interpret,
+    )(*lists, rows, *rays)
+
+
+@functools.partial(jax.jit, static_argnames=("interpret",))
+def shared_nearest_hit(rows, spheres, dh, ro, interpret=False):
+    """rows: (SHARED_ROWS, T_pad) from shared_rows; spheres: (n_chunks, 4)
+    at TC granularity; dh: (3, N) unit object-space dirs; ro: (3,).
+
+    Returns (best_t (N,) object-space distance, INF on miss; best_tri (N,)
+    chunk-pool triangle index, -1 on miss). interpret=True runs the kernel
+    in Pallas interpret mode (CPU-testable production path).
+    """
+    n = dh.shape[1]
+    n_pad = _round_up(n, NB)
+    dh_p = jnp.pad(dh, ((0, 0), (0, n_pad - n)), constant_values=1.0)
+    ro_p = jnp.broadcast_to(ro[:, None], (3, n_pad))
+    order, minds, counts = live_chunk_lists(spheres, dh_p, ro_p)
+    lo = jnp.min(spheres[:, :3] - spheres[:, 3:4], axis=0)
+    hi = jnp.max(spheres[:, :3] + spheres[:, 3:4], axis=0)
+    bound = box_exit(lo, hi, ro, dh_p)[None, :]
+    bt, btri = _call(_shared_kernel, (order, minds, counts), rows,
+                     (dh_p, bound), (jnp.float32, jnp.int32), interpret)
+    return bt[:n], btri[:n]
+
+
+@functools.partial(jax.jit, static_argnames=("interpret",))
+def general_min_t(rows, spheres, r10, tmax_obj=None, valid=None,
+                  tcut_obj=None, interpret=False):
+    """rows: (GENERAL_ROWS, T_pad) from general_rows; spheres: (n_chunks, 4);
     r10: (10, N) lifted rays [dh, o x dh, o, 1]; tmax_obj: optional (N,)
     object-space search bound per ray -- the result is min(nearest hit,
     tmax_obj); valid: optional (N,) lanes included in the culling cones;
@@ -959,7 +495,6 @@ def general_min_t(cols_grouped, spheres, r10, tmax_obj=None, valid=None,
     be missed, but it is still returned < tcut; only sound for callers that
     compare the result against a bound >= tcut).
     Returns per-ray min object-space distance."""
-    T_pad = cols_grouped.shape[0] // 4
     n = r10.shape[1]
     n_pad = _round_up(n, NB)
     r10_p = jnp.pad(r10, ((0, 0), (0, n_pad - n)), constant_values=1.0)
@@ -968,59 +503,31 @@ def general_min_t(cols_grouped, spheres, r10, tmax_obj=None, valid=None,
         tmax_obj = jnp.full((n,), INF, jnp.float32)
     if tcut_obj is None:
         tcut_obj = jnp.zeros((n,), jnp.float32)
-    tmax_p = jnp.stack([jnp.pad(tmax_obj, (0, n_pad - n)),
-                        jnp.pad(tcut_obj, (0, n_pad - n))])
+    tmax_p = jnp.pad(tmax_obj, (0, n_pad - n))
+    tcut_p = jnp.pad(tcut_obj, (0, n_pad - n))
     valid_p = None if valid is None else jnp.pad(valid, (0, n_pad - n))
-    cols_grouped = chunk_interleave(cols_grouped, T_pad, 4, TC_GEN)
     lo = jnp.min(spheres[:, :3] - spheres[:, 3:4], axis=0)
     hi = jnp.max(spheres[:, :3] + spheres[:, 3:4], axis=0)
-    box = jnp.concatenate([lo, hi])[None, :]  # (1, 6) scalars
-    s2 = _order2_s()
-    lane_bound = _general_lane_bound(tmax_p[0], r10_p, lo, hi)
+    # Per-lane walk bound: min(tmax, union-box exit). For shadow rays from
+    # the mesh's own surface this caps LIT lanes (the expensive ones: they
+    # must otherwise prove no occluder exists all the way to the light) at
+    # the box exit instead of the light distance. The RESULT is still
+    # min(best_t, tmax): no hit can exist beyond the box.
+    tmax_eff = jnp.minimum(tmax_p, box_exit(lo, hi, r10_p[6:9], r10_p[0:3]))
+    mode = _shadow_cull_mode()
+    lane_bound = {"none": None, "tmax": tmax_p, "boxfar": tmax_eff}[mode]
     endpoints = seg_len = None
     if bounded and valid is not None and _revcone_on():
         # Per-lane segment endpoint: o + dh * tmax_obj -- for shadow rays,
-        # the light's position in this object's frame (identical across
-        # lanes when the light is static relative to the object; spread is
-        # handled conservatively either way). tmax_obj already carries the
-        # caller's bound margin, so the reversed cone covers every hit the
-        # clamped result can expose.
-        endpoints = r10_p[6:9] + r10_p[0:3] * tmax_p[0][None, :]
-        seg_len = tmax_p[0]
-    if s2:
-        order, minds, counts, bits = live_chunk_lists2(
-            spheres, r10_p[0:3], r10_p[6:9], valid=valid_p,
-            lane_bound=lane_bound, s=s2, endpoints=endpoints,
-            seg_len=seg_len)
-    else:
-        order, minds, counts = live_chunk_lists(
-            spheres, r10_p[0:3], r10_p[6:9], valid=valid_p,
-            lane_bound=lane_bound, endpoints=endpoints, seg_len=seg_len)
-
-    kernel = functools.partial(_general_kernel, T=T_pad, T_pad=T_pad,
-                               pair=_pair_mode(), s2=s2)
-    smem_win = lambda w: pl.BlockSpec((1, 1, w), lambda i: (i, 0, 0),  # noqa: E731
-                                      memory_space=pltpu.SMEM)
-    bt = pl.pallas_call(
-        kernel,
-        grid=(n_pad // NB,),
-        in_specs=[
-            smem_win(order.shape[2]),
-            smem_win(minds.shape[2]),
-            smem_win(1),
-            pl.BlockSpec((1, 6), lambda i: (0, 0), memory_space=pltpu.SMEM),
-            pl.BlockSpec((cols_grouped.shape[0], 10), lambda i: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((10, NB), lambda i: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((2, NB), lambda i: (0, i), memory_space=pltpu.VMEM),
-        ] + ([smem_win(bits.shape[2])] if s2 else []),
-        out_specs=pl.BlockSpec((2 if debug_iters else 1, NB),
-                               lambda i: (0, i), memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((2 if debug_iters else 1, n_pad),
-                                       jnp.float32,
-                                       vma=ray_vma(r10_p, tmax_p)),
-        interpret=interpret,
-    )(order, minds, counts, box, cols_grouped, r10_p, tmax_p,
-      *((bits,) if s2 else ()))
-    if debug_iters:
-        return bt[0, :n], bt[1, ::NB]
-    return bt[0, :n]
+        # the light's position in this object's frame. tmax_obj already
+        # carries the caller's bound margin, so the reversed cone covers
+        # every hit the clamped result can expose.
+        endpoints = r10_p[6:9] + r10_p[0:3] * tmax_p[None, :]
+        seg_len = tmax_p
+    order, minds, counts = live_chunk_lists(
+        spheres, r10_p[0:3], r10_p[6:9], valid=valid_p,
+        lane_bound=lane_bound, endpoints=endpoints, seg_len=seg_len)
+    lim = jnp.stack([tmax_p, tcut_p, tmax_eff])
+    (bt,) = _call(_general_kernel, (order, minds, counts), rows,
+                  (r10_p, lim), (jnp.float32,), interpret)
+    return bt[:n]

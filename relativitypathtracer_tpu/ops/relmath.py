@@ -1,6 +1,6 @@
 """Special-relativity and affine-transform math, batched over leading axes.
 
-TPU-native re-design of the reference host math layer
+Device-side re-design of the reference host math layer
 (/root/reference/Vector.cpp:94-232). Everything here is pure jnp so it can run
 inside a jitted frame step: the reference recomputes per-object boost matrices
 on the host each frame and re-uploads a buffer (/root/reference/Render.cpp:179-203);

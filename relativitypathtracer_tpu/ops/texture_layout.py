@@ -3,13 +3,9 @@
 Texels are stored as 16x16-texel tiles (256 footprint quads each). Tiles
 within a region are laid out in MORTON (Z-curve) order over the region's
 tile grid (each axis padded to a power of two): a screen block's 2D texel
-footprint then maps to a COMPACT 1D range of atlas rows, which is what lets
-the windowed-DMA texture kernel (ops.pallas.texture_kernel) walk large
-atlases in a handful of 1024-row windows instead of the whole tile-row span.
-Row-major tile order (the previous layout) made one tile-row of a 1024^2
-texture span 8,192 atlas rows, so any vertically-spread block walked nearly
-the entire atlas and 1024^2 textures were stuck on the ~3 ms flat XLA
-gather.
+footprint then maps to a COMPACT 1D range of atlas rows instead of spanning
+whole tile rows (one tile-row of a 1024^2 texture spans 8,192 atlas rows in
+row-major order), which keeps a block's gathers local in memory.
 
 Everything here is plain operator arithmetic (&, |, shifts, comparisons) so
 the SAME functions run on numpy arrays (scene build), jnp traced arrays
@@ -65,8 +61,8 @@ def tile_params(wb, rh):
     tile_slot_fast. They depend only on the REGION shape, so hot samplers
     hoist them to per-object scale (one row each in the renderer's fused
     attribute select) instead of re-deriving the pow2 grid per ray: the
-    per-lane `_next_pow2` chains and the variable integer division --
-    expensive on the TPU VPU -- drop out of the per-ray path entirely.
+    per-lane `_next_pow2` chains and the variable integer division drop out
+    of the per-ray path entirely.
     r16 = 65536 // s is the exact multiply-shift reciprocal of the pow2
     Morton core size s (tile counts <= 256 so tx * r16 < 2^24)."""
     wb2, hb2 = region_tile_grid(wb, rh)
@@ -91,11 +87,10 @@ def tile_slot(lx, ly, wb, rh):
     (square pow2 core, extra high bits of the longer axis appended above)
     times 256, plus the row-major offset within the 16x16 tile.
 
-    NO per-lane-variable-amount shifts anywhere: TPU vector units have no
-    such instruction and the lowering (observed in both the XLA and Mosaic
-    compilers) can wedge; the high bits are extracted with an exact
-    multiply-shift by the reciprocal of the (power-of-two) core size
-    (tile_slot_fast). Samplers on the hot path precompute tile_params per
+    NO per-lane-variable-amount shifts anywhere: the high bits are
+    extracted with an exact multiply-shift by the reciprocal of the
+    (power-of-two) core size (tile_slot_fast), which every backend lowers
+    to plain integer multiplies. Samplers on the hot path precompute tile_params per
     OBJECT instead of calling this per ray."""
     return tile_slot_fast(lx, ly, *tile_params(wb, rh))
 

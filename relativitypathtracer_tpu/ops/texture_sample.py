@@ -20,9 +20,8 @@ def bilinear_sample_packed(atlas_u32, offset_texels, width, height, uv):
     """Bilinear sample from the RGB-packed uint32 atlas.
 
     atlas_u32: (R, 8) uint32 rows (flat texel index = 8*row + lane).
-    Element gathers on TPU cost ~8ns each; row gathers of 32-byte rows
-    ((N, 8) u32) hit a fast path ~20x cheaper, so each tap is one row gather
-    + a one-hot 8-lane select. Texel layout: R | G<<8 | B<<16.
+    Each tap is one row gather of a 32-byte row ((N, 8) u32) + a one-hot
+    8-lane select. Texel layout: R | G<<8 | B<<16.
 
     offset_texels: (N,) int32 (byte offset / 3); uv: (2, N).
     Returns (3, N) float RGB in [0, 1].

@@ -2,19 +2,19 @@
 
 The reference is strictly single-device (one OpenCL device,
 /root/reference/CLSetup.cpp:86-98); its only parallelism is the flat NDRange
-over pixels. The TPU-native scale-out of that axis is data parallelism over
-the renderer's 1024-lane kernel blocks (32x32 screen tiles, or (32/m)^2
-patches with folded MSAA samples): each chip renders an equal number of
+over pixels. The scale-out of that axis here is data parallelism over the
+renderer's 1024-lane culling blocks (32x32 screen tiles, or (32/m)^2
+patches with folded MSAA samples): each device renders an equal number of
 blocks with the scene pytree replicated, and the full frame materializes
 sharded across devices (an all-gather only happens if the host fetches it).
+Every card reaches every other at the same rate, so the mesh is 1-D.
 The only in-frame collective is an optional psum of the tiny aux counters;
 rays never cross blocks.
 
-Blocks are dealt boustrophedon by default ("strided"), so every chip's
+Blocks are dealt along diagonals by default ("strided"), so every device's
 blocks sample the whole image: scene geometry concentrates in the center of
-the frame (bunny's mesh spans ~the middle third), and contiguous row-bands
-leave edge chips idle while center chips carry all the mesh-walk work
-(measured 3.7x max/mean skew on bunny; block dealing holds it near 1).
+the frame, and contiguous row-bands leave edge devices idle while center
+devices carry all the mesh-walk work (band_mesh_work measures the skew).
 """
 
 from __future__ import annotations
@@ -31,7 +31,7 @@ except AttributeError:  # pragma: no cover
 
 from ..models.scene import Scene, SceneMeta
 from ..ops.camera import camera_ray_dirs
-from ..ops.mesh_intersect import _resolve_pallas
+from ..ops.mesh_intersect import resolve_kernels
 from ..ops.tonemap import tonemap
 from ..render import (
     FrameState, TILE, _round_up, msaa_swizzle, object_frames, shade,
@@ -135,17 +135,16 @@ def build_sharded_render_fn(meta: SceneMeta, width: int, height: int, interval: 
         # blocks concatenate over devices; psum'd aux is replicated
         out_specs=(P(axis, None, None), P()) if with_aux else P(axis, None, None),
         # Static replication checking is ON for the jnp path AND the
-        # compiled-pallas production route (VERDICT r4 item 9): scan/while
-        # carries initialized from constants inside ops.mesh_intersect are
-        # pcast to the rays' varying axes (ops.mesh_intersect._vma_like),
-        # and every pallas_call out_shape declares its vma explicitly
-        # (ops.pallas.ray_vma) as jax 0.9 requires. Only INTERPRET-mode
-        # pallas still fails upstream (hlo_interpreter evaluates the kernel
-        # body under vma rules, where ref loads mix varying/replicated --
-        # "Primitive mul requires varying manual axes to match", jax 0.9.0),
-        # so that mode alone keeps the dynamic coverage in
-        # tests/test_parallel.py (sharded vs single-device bitwise equality).
-        check_vma=not _resolve_pallas(None)[1],
+        # compiled Triton walks: scan/while carries initialized from
+        # constants inside ops.mesh_intersect are pcast to the rays' varying
+        # axes (ops.mesh_intersect._vma_like), and every pallas_call
+        # out_shape declares its vma (ops.pallas.ray_vma). Only
+        # INTERPRET-mode Pallas fails upstream (the interpreter evaluates
+        # the kernel body under vma rules, where ref loads mix varying and
+        # replicated values), so that mode alone relies on the dynamic
+        # coverage in tests/test_parallel.py (sharded vs single-device
+        # equality).
+        check_vma=not resolve_kernels()[1],
     )
 
     inv = jnp.asarray(inv_blocks)
@@ -171,9 +170,8 @@ def per_block_mesh_work(scene: Scene, meta: SceneMeta, width: int,
                         height: int, n_dev: int, state=None,
                         interval: int | None = None):
     """Per-BLOCK mesh-work proxy: primary rays whose nearest hit is a MESH
-    object, summed per 1024-lane block. The mesh walk dominates the frame
-    budget (ROADMAP's bunny breakdown), so mesh-hit rays approximate each
-    block's share of the real work. The expensive intersect depends only on
+    object, summed per 1024-lane block. Mesh-hit rays approximate each
+    block's share of the mesh-walk work. The expensive intersect depends only on
     the (n_dev-padded) grid, NOT the block assignment -- compute it once
     and repartition with partition_work for each assignment under test.
     Returns (per_block (n_blocks,) f32, grid_rows, grid_cols)."""

@@ -1,103 +1,81 @@
-"""Large-mesh capability demo: subdivided-bunny scene, cached.
+"""Large-mesh capability demo: the flagship scene with its mesh subdivided.
 
-Builds (once per machine, pickle-cached in the workdir) a >=100k-triangle
-scene from the shipped bunny via midpoint subdivision (utils.subdiv), routes
-it through the large-mesh kernel tier (ops.pallas.mesh_large -- the scene
-build adds the superchunk statics automatically above LARGE_T), and offers
-the measurement used by bench.py: frame time + full-res oracle parity.
+Three midpoint subdivisions (utils.subdiv) take the flagship mesh
+(utils.demo_scenes) from 5,120 to 327,680 triangles without changing its
+surface; the scene goes through the normal loader, octree and Morton
+order, and the renderer walks it with the same Triton kernels as the small
+mesh (their constants are read from global memory at any size).
 
 The reference reaches this scale through its depth-6 octree
 (/root/reference/Octree.cpp:171-248); the oracle (native/cpu_reference)
-implements that same algorithm, so the parity check validates the large tier
-end-to-end at production resolution.
+implements that same algorithm, so the parity check validates the large
+mesh end-to-end at production resolution.
+
+    python -m relativitypathtracer_tpu.utils.largedemo [--levels N] [--seed N]
 """
 
 from __future__ import annotations
 
-import os
-import pickle
 import subprocess
-import time
+import tempfile
 
 import numpy as np
 
-SRC_OBJ = os.environ.get("REF_ASSETS", "/root/reference") + "/Models/bunny.obj"
-LEVELS = 3  # 4,968 * 4^3 = 317,952 triangles
-
-
-def xl_cache_path(levels: int = LEVELS, workdir: str = "/tmp") -> str:
-    """Path of the pickled HostScene cache load_large_scene writes --
-    derived from the SAME tag scheme as utils.subdiv.make_subdivided_scene
-    so gates (bench.py's large_mesh_xl section) cannot drift from it."""
-    tag = f"subdiv_{os.path.basename(SRC_OBJ).split('.')[0]}_{levels}"
-    return os.path.join(workdir, tag, "Scenes", "scene.txt.host.pkl")
-
-
-def load_large_scene(workdir: str = "/tmp", levels: int = LEVELS):
-    """Returns (scene, meta) for the subdivided-bunny scene; the parsed
-    HostScene (OBJ parse + smooth normals + octree: ~2 min at 318k tris) is
-    pickle-cached so repeated bench runs pay seconds, not minutes."""
-    from relativitypathtracer_tpu import build_scene, load_scene_file
-    from relativitypathtracer_tpu.utils.subdiv import make_subdivided_scene
-
-    scene_txt = make_subdivided_scene(SRC_OBJ, levels, workdir=workdir)
-    cache = scene_txt + ".host.pkl"
-    if os.path.exists(cache):
-        with open(cache, "rb") as f:
-            host = pickle.load(f)
-    else:
-        host = load_scene_file(scene_txt)
-        with open(cache, "wb") as f:
-            pickle.dump(host, f)
-    return build_scene(host)
+LEVELS = 3  # 5,120 * 4^3 = 327,680 triangles
 
 
 def large_parity_and_time(width: int = 1024, height: int = 768,
-                          frames: int = 12, workdir: str = "/tmp",
-                          levels: int = LEVELS) -> dict:
-    """Render the large scene on the live backend: per-frame time (chained
-    frames, relay RTT subtracted) + full-res parity vs the C++ oracle.
-    levels=4 is the 1,271,808-triangle XL tier (39,744 chunks ->
-    live_chunk_lists3 super-sphere culling)."""
-    import jax.numpy as jnp
+                          frames: int = 20, levels: int = LEVELS,
+                          seed: int = 0) -> dict:
+    """Render the subdivided flagship scene on the live backend: per-frame
+    time (p50, block_until_ready) + full-res parity vs the C++ oracle."""
+    import time
+
+    import jax
 
     from relativitypathtracer_tpu.render import FrameState, build_render_fn
+    from relativitypathtracer_tpu.utils.demo_scenes import flagship_scene
     from relativitypathtracer_tpu.utils.parity import MAX_FRAC_BAD, _ensure_oracle
     from relativitypathtracer_tpu.utils.scene_blob import write_scene_blob
+    from relativitypathtracer_tpu.utils.timing import frame_times_ms, percentile
 
-    scene, meta = load_large_scene(workdir=workdir, levels=levels)
-    assert scene.mesh_static[0].gen_rec is not None, "large tier not engaged"
+    t0 = time.perf_counter()
+    _ensure_oracle()  # also builds the native octree builder
+    scene, meta = flagship_scene(seed, levels)
+    build_s = time.perf_counter() - t0
     state = FrameState.initial()
     render = build_render_fn(meta, width, height, meta.default_interval, 1)
-    img = render(scene, state)
-    _ = float(jnp.sum(img))
-    rtt = []
-    for _i in range(3):
-        t0 = time.perf_counter()
-        _ = float(jnp.sum(img))
-        rtt.append(time.perf_counter() - t0)
-    t0 = time.perf_counter()
-    for _i in range(frames):
-        img = render(scene, state)
-    _ = float(jnp.sum(img))
-    ms = (time.perf_counter() - t0 - min(rtt)) / frames * 1e3
+    times, compile_s, img = frame_times_ms(render, scene, state, frames=frames)
 
-    blob = f"{workdir}/parity_large_l{levels}.blob"
-    out = f"{workdir}/parity_large_l{levels}.rgb"
-    write_scene_blob(blob, scene, meta, state, width, height)
-    subprocess.run([_ensure_oracle(), blob, out], check=True, capture_output=True)
-    ref = np.fromfile(out, np.float32).reshape(height, width, 3)
+    with tempfile.TemporaryDirectory() as tmp:
+        blob, out = f"{tmp}/large.blob", f"{tmp}/large.rgb"
+        write_scene_blob(blob, scene, meta, state, width, height)
+        subprocess.run([_ensure_oracle(), blob, out], check=True,
+                       capture_output=True)
+        ref = np.fromfile(out, np.float32).reshape(height, width, 3)
     diff = np.abs(ref - np.asarray(img))
     frac_bad = float(np.mean(diff.max(-1) > 1e-3))
     return {
         "tris": meta.num_tris,
-        "frame_ms": round(ms, 3),
-        "frac_bad": round(frac_bad, 6),
+        "device_kind": jax.devices()[0].device_kind,
+        "scene_build_s": round(build_s, 1),
+        "compile_s": round(compile_s, 1),
+        "frame_ms": percentile(times, 50),
+        "frame_ms_p95": percentile(times, 95),
+        "frac_bad": frac_bad,
         "ok": bool(frac_bad <= MAX_FRAC_BAD),
     }
 
 
 if __name__ == "__main__":
+    import argparse
     import json
 
-    print(json.dumps(large_parity_and_time()))
+    ap = argparse.ArgumentParser(description="subdivided flagship mesh")
+    ap.add_argument("--levels", type=int, default=LEVELS)
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+    from relativitypathtracer_tpu.utils.jaxcache import enable
+
+    enable()
+    print(json.dumps(large_parity_and_time(levels=args.levels, seed=args.seed)))

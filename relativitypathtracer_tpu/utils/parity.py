@@ -13,7 +13,7 @@ footprint-region margins).
 Used two ways:
 - bench.py folds `fullres_parity()` results into its JSON line each round;
 - `python -m relativitypathtracer_tpu.utils.parity [scenes...]` runs it
-  standalone (exit 1 on failure), e.g. from tests in a TPU subprocess.
+  standalone (exit 1 on failure), e.g. from tests in a GPU subprocess.
 """
 
 from __future__ import annotations
@@ -85,7 +85,7 @@ def main(argv: list[str]) -> int:
     """`python -m relativitypathtracer_tpu.utils.parity [--out FILE]
     [scenes...|all]` -- renders each scene at 1024x768 with both
     implementations; with --out, writes the per-scene results (plus backend
-    and package version) as one JSON artifact (e.g. PARITY_r04.json)."""
+    and package version) as one JSON artifact."""
     from .jaxcache import enable as _enable_cache
 
     _enable_cache()

@@ -25,8 +25,8 @@ MAGIC_VERSION = 3
 def _lorentz_np(v: np.ndarray) -> np.ndarray:
     """Host float32 boost matrices; numpy mirror of ops.relmath.lorentz.
 
-    The blob's matrices MUST be computed on host: an eager jnp call in a
-    TPU-default process runs the 4x4 matmuls on the MXU at default (bf16)
+    The blob's matrices MUST be computed on host: an eager jnp call on an
+    accelerator may run the 4x4 matmuls at reduced (TF32 or bf16) default
     precision, feeding the oracle ~1e-3-degraded Lorentz matrices -- which
     shows up as percent-level false parity failures in minified-texture
     regions (root-caused on rulers.txt/cubes.txt at 1024x768).

@@ -1,35 +1,17 @@
-"""Procedural large-mesh fixture: midpoint-subdivided OBJ generation.
+"""Midpoint subdivision and OBJ writing for procedural meshes.
 
 The reference's capability envelope includes arbitrary-size OBJs through its
-depth-6 octree (/root/reference/Octree.cpp:171-248); the shipped corpus tops
-out at the 4,968-triangle bunny. This module generates arbitrarily large
-meshes from the shipped assets (midpoint subdivision quadruples the triangle
-count per level, preserving the surface) so the large-mesh kernel tier
-(ops.pallas.mesh_large) can be exercised and parity-checked against the C++
-oracle without adding binary assets to the repo. The subdivided mesh is
-written as a plain OBJ and loaded through the normal loader, so smooth
-normals, octree build and scene construction follow the exact reference
-semantics (/root/reference/Render.cpp:436-538).
+depth-6 octree (/root/reference/Octree.cpp:171-248); its shipped corpus tops
+out at a 4,968-triangle bunny. Midpoint subdivision quadruples the triangle
+count per level while preserving the surface, so the flagship mesh
+(utils.demo_scenes) grows to large-mesh sizes (utils.largedemo) without
+binary assets in the repository. Meshes are written as plain OBJs and
+loaded through the normal loader, so smooth normals, octree build and scene
+construction follow the exact reference semantics
+(/root/reference/Render.cpp:436-538).
 """
 
 from __future__ import annotations
-
-import os
-
-
-def _parse_obj_vf(path: str):
-    verts, faces = [], []
-    with open(path) as f:
-        for line in f:
-            t = line.split()
-            if not t:
-                continue
-            if t[0] == "v":
-                verts.append((float(t[1]), float(t[2]), float(t[3])))
-            elif t[0] == "f":
-                idx = [int(p.split("/")[0]) - 1 for p in t[1:4]]
-                faces.append(tuple(idx))
-    return verts, faces
 
 
 def subdivide(verts, faces, levels: int):
@@ -64,33 +46,3 @@ def write_obj(path: str, verts, faces):
             f.write(f"v {v[0]:.9g} {v[1]:.9g} {v[2]:.9g}\n")
         for a, b, c in faces:
             f.write(f"f {a + 1} {b + 1} {c + 1}\n")
-
-
-def make_subdivided_scene(src_obj: str, levels: int, workdir: str = "/tmp",
-                          light: bool = True) -> str:
-    """Generate (once, cached by path) a scene directory containing the
-    `levels`-times subdivided `src_obj` plus a bunny.txt-style scene file
-    (mesh + light sphere + ambient). Returns the scene file path."""
-    tag = f"subdiv_{os.path.basename(src_obj).split('.')[0]}_{levels}"
-    root = os.path.join(workdir, tag)
-    # Scenes/ subdir: load_scene_file resolves assets two levels up, like
-    # the reference's Scenes/Models layout.
-    scene_txt = os.path.join(root, "Scenes", "scene.txt")
-    obj_path = os.path.join(root, "Models", "big.obj")
-    if not os.path.exists(scene_txt):
-        os.makedirs(os.path.dirname(obj_path), exist_ok=True)
-        os.makedirs(os.path.dirname(scene_txt), exist_ok=True)
-        verts, faces = _parse_obj_vf(src_obj)
-        verts, faces = subdivide(verts, faces, levels)
-        write_obj(obj_path, verts, faces)
-        light_block = "Os\n l1\n p0,2,4,0,0,0,0,0.1,0.1,0.1\n c1,1,1\n" if light else ""
-        with open(scene_txt, "w") as f:
-            f.write(
-                "MModels/big.obj\n"
-                "Om0\n"
-                " p-0.5,-3,5,3.14,0,1,0,20,20,20\n"
-                " c0.8,0.5,0.3\n"
-                f"{light_block}"
-                "A0.2\n"
-                "R\n")
-    return scene_txt

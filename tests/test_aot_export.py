@@ -3,22 +3,23 @@
 The exported artifact must (a) reproduce the live renderer bit-for-bit when
 deserialized and called, (b) accept a DIFFERENT scene of the same shapes
 (scene is an argument, not a constant), and (c) export the production
-Pallas kernels for TPU from this CPU host."""
+Triton mesh walks for CUDA from this CPU host."""
 
 import numpy as np
 import pytest
 
-from relativitypathtracer_tpu import (
-    FrameState, build_scene, load_scene_file, render_frame)
+from relativitypathtracer_tpu import FrameState, render_frame
 from relativitypathtracer_tpu.utils.aot import export_render, load_render
 
 W, H = 160, 96
 
 
 @pytest.fixture(scope="module")
-def cube_scene(reference_root):
-    host = load_scene_file(str(reference_root / "Scenes" / "cube.txt"))
-    return build_scene(host)
+def cube_scene():
+    """The in-repository flagship scene (mesh, light, textured cube)."""
+    from relativitypathtracer_tpu.utils.demo_scenes import flagship_scene
+
+    return flagship_scene()
 
 
 def test_export_roundtrip_matches_live_render(cube_scene):
@@ -32,8 +33,7 @@ def test_export_roundtrip_matches_live_render(cube_scene):
     np.testing.assert_array_equal(out, ref)
 
 
-def test_exported_artifact_takes_new_scene_and_state(cube_scene,
-                                                     reference_root):
+def test_exported_artifact_takes_new_scene_and_state(cube_scene):
     """Serving property: one artifact, many scenes/frames -- a same-shape
     scene built from different DSL input must render through the
     deserialized artifact without retracing or re-export."""
@@ -80,10 +80,10 @@ def test_export_sharded_renderer_roundtrip(cube_scene):
     np.testing.assert_array_equal(out, ref)
 
 
-def test_export_production_kernels_for_tpu(cube_scene):
-    """The deployment story: the REAL Pallas-kernel renderer exports for
-    TPU from this CPU-only host (lowering is cross-platform; execution of
-    this artifact is what the serving fleet does)."""
+def test_export_production_kernels_for_cuda(cube_scene):
+    """The deployment story: the renderer with the Triton mesh walks exports
+    for CUDA from this CPU-only host (lowering is cross-platform; executing
+    the artifact is what the serving hosts do)."""
     from conftest import clear_kernel_caches
 
     from relativitypathtracer_tpu.ops import mesh_intersect
@@ -92,12 +92,12 @@ def test_export_production_kernels_for_tpu(cube_scene):
     mesh_intersect.PALLAS_MODE = True
     clear_kernel_caches()
     try:
-        data = export_render(scene, meta, W, H, platforms=("tpu",))
+        data = export_render(scene, meta, W, H, platforms=("cuda",))
     finally:
         mesh_intersect.PALLAS_MODE = None
         clear_kernel_caches()
     from jax import export as jax_export
 
     exp = jax_export.deserialize(data)
-    assert exp.platforms == ("tpu",)
-    assert "tpu_custom_call" in exp.mlir_module()
+    assert exp.platforms == ("cuda",)
+    assert "xla.gpu.triton" in exp.mlir_module()

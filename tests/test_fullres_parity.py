@@ -4,12 +4,12 @@ The low-res suite (test_oracle_parity.py) cannot see resolution-dependent
 divergence (early-termination bounds, footprint-region margins grow with
 resolution). This test executes the claim itself via
 relativitypathtracer_tpu.utils.parity in a fresh subprocess so the real
-(TPU) backend is used rather than the conftest's pinned CPU platform.
+(GPU) backend is used rather than the conftest's pinned CPU platform.
 
 Gated behind RPT_FULLRES=1 because the jnp fallback path at 1024x768 on a
 CPU-only host takes minutes per scene; the SAME check runs unconditionally
-on the real chip inside bench.py every round (fullres_parity_frac_gt_1e3
-in the bench JSON), so the claim stays enforced regardless of this gate.
+on the card inside bench.py (fullres_parity_frac_gt_1e3 in the bench
+JSON), and chip_smoke.py checks the flagship frame the same way.
 """
 
 import json
@@ -29,7 +29,7 @@ def test_midres_oracle_parity_always(reference_root):
     resolution where tile padding, early-termination bounds and footprint
     margins differ from the 192x108 smoke suite. ~80 s on a CPU host; keeps
     a resolution-sensitive check in CI even when the full-res tier below
-    is skipped (VERDICT r3 weak #3)."""
+    is skipped."""
     import shutil
 
     from relativitypathtracer_tpu.utils.parity import fullres_parity

@@ -1,118 +1,11 @@
-"""Large-mesh tier (ops.pallas.mesh_large) tests.
+"""Procedural large-mesh fixture tests (utils.subdiv).
 
-The production path for meshes beyond the VMEM-resident kernels' capacity:
-superchunk ordering, chunk bitmask skip, per-chunk HBM->VMEM DMA. Forced on
-small fixtures via mesh_intersect.LARGE_MODE so the CPU interpret suite
-exercises every mechanism (scene-build statics, record packing, the walk,
-DMA double-buffering) without a 100k-triangle fixture; the real-scale run
-(317,952-tri subdivided bunny, full-res oracle parity) happens on the TPU
-in bench.py via utils.largedemo.
+Midpoint subdivision grows the flagship mesh to the 300k-triangle tier that
+the Triton walk handles on the card (utils.largedemo); the tier itself runs
+there, not here.
 """
 
 import numpy as np
-import pytest
-
-from relativitypathtracer_tpu import build_scene, load_scene_file
-from relativitypathtracer_tpu.ops import mesh_intersect
-from relativitypathtracer_tpu.render import FrameState, build_render_fn, render_frame
-
-
-@pytest.fixture
-def force_large():
-    mesh_intersect.PALLAS_MODE = "interpret"
-    mesh_intersect.LARGE_MODE = True
-    build_render_fn.cache_clear()
-    yield
-    mesh_intersect.PALLAS_MODE = None
-    mesh_intersect.LARGE_MODE = None
-    build_render_fn.cache_clear()
-
-
-def test_large_path_matches_small(reference_root, force_large):
-    """Forced-large interpret render == small-path interpret render on
-    shadows.txt (mesh + analytic + shadow rays): covers both large kernels,
-    the scene-build large statics and the record packers. In interpret mode
-    the bf16-split attr dots are exact, so equality is bitwise-tight."""
-    host = load_scene_file(str(reference_root / "Scenes" / "shadows.txt"))
-    state = FrameState.initial()
-    W, H = 96, 64
-    scene_l, meta_l = build_scene(host)
-    assert scene_l.mesh_static[0].gen_rec is not None  # large tier engaged
-    large = np.asarray(render_frame(scene_l, meta_l, state, W, H))
-
-    mesh_intersect.LARGE_MODE = False
-    build_render_fn.cache_clear()
-    scene_s, meta_s = build_scene(host)
-    assert scene_s.mesh_static[0].gen_rec is None
-    small = np.asarray(render_frame(scene_s, meta_s, state, W, H))
-    np.testing.assert_allclose(large, small, atol=2e-5)
-
-
-def test_large_path_boosted_state(reference_root, force_large):
-    """Moving-camera state through the large tier (per-frame shared-origin
-    records are camera-dependent and repacked every frame)."""
-    import jax.numpy as jnp
-
-    host = load_scene_file(str(reference_root / "Scenes" / "shadows.txt"))
-    state = FrameState(
-        cam_velocity=jnp.array([0.2, 0.05, -0.1], jnp.float32),
-        cam_pos=jnp.array([1.5, 0, 0, 0], jnp.float32),
-    )
-    W, H = 96, 64
-    scene_l, meta_l = build_scene(host)
-    large = np.asarray(render_frame(scene_l, meta_l, state, W, H))
-
-    mesh_intersect.LARGE_MODE = False
-    build_render_fn.cache_clear()
-    scene_s, meta_s = build_scene(host)
-    small = np.asarray(render_frame(scene_s, meta_s, state, W, H))
-    np.testing.assert_allclose(large, small, atol=2e-5)
-
-
-def test_large_live_lists_ragged_tail_floors():
-    """Regression guard for the round-3 NaN-floor failure mode: with C not
-    divisible by S_SUPER, every super floor the ordering publishes must be
-    finite and <= each overlapping child chunk's own cull distance (the
-    early-termination soundness invariant), and the pure-padding tail must
-    never be live. (The old super-sphere build could emit NaN floors from
-    INF-radius pad spheres; floors now REDUCE the chunk cull, see
-    mesh_kernels.live_chunk_lists2.)"""
-    import jax.numpy as jnp
-
-    from relativitypathtracer_tpu.ops.pallas.mesh_kernels import (
-        NB, _sub_cone_cull)
-    from relativitypathtracer_tpu.ops.pallas.mesh_large import (
-        S_SUPER, large_live_lists)
-
-    rng = np.random.default_rng(0)
-    C = 45  # not a multiple of S_SUPER
-    sph = jnp.asarray(np.concatenate(
-        [rng.normal(size=(C, 3)) * 3.0, rng.uniform(0.1, 0.3, (C, 1))],
-        axis=1).astype(np.float32))
-    d = rng.normal(size=(3, 2 * NB)).astype(np.float32)
-    d /= np.linalg.norm(d, axis=0)
-    o = np.zeros((3, 2 * NB), np.float32)
-    order, minds, counts, bits = (
-        np.asarray(x) for x in large_live_lists(sph, jnp.asarray(d),
-                                                jnp.asarray(o)))
-    mind_c, over_c = (np.asarray(x)
-                      for x in _sub_cone_cull(sph, jnp.asarray(d),
-                                              jnp.asarray(o)))
-    C_s = order.shape[2]
-    assert C_s == -(-C // S_SUPER)
-    for b in range(order.shape[0]):
-        n_live = int(counts[b, 0, 0])
-        for p in range(n_live):
-            sid = int(order[b, 0, p])
-            floor = minds[b, 0, sid]
-            assert np.isfinite(floor), (b, p, sid)
-            for k in range(sid * S_SUPER, min((sid + 1) * S_SUPER, C)):
-                if over_c[b, k]:
-                    assert floor <= mind_c[b, k] + 1e-5
-        # pure-padding bit positions (>= C) don't exist in the chunk mask
-        live_bits = [(bits[b, 0, w] >> i) & 1
-                     for w in range(bits.shape[2]) for i in range(32)]
-        assert not any(live_bits[C:]), "padding chunks marked live"
 
 
 def test_subdivision_watertight():
@@ -131,79 +24,3 @@ def test_subdivision_watertight():
     assert len(np.unique(arr.round(9), axis=0)) == len(arr)
     # all vertices stay on the z=0 plane (midpoints preserve the surface)
     assert np.abs(arr[:, 2]).max() == 0.0
-
-
-def test_large_path_multi_mesh(reference_root, force_large):
-    """Multi-mesh scene forced through the large tier: the scene build must
-    skip the (VMEM-bound) batch pool and the per-object kernel loop must
-    route every mesh through the large kernels, matching the small path."""
-    from conftest import MULTI_SCENE
-    from relativitypathtracer_tpu.models.dsl import parse_scene
-
-    host = parse_scene(MULTI_SCENE, str(reference_root))
-    state = FrameState.initial()
-    W, H = 96, 64
-    scene_l, meta_l = build_scene(host)
-    assert scene_l.mesh_batch is None  # batch pool off for large-tier scenes
-    assert all(ms.gen_rec is not None for ms in scene_l.mesh_static)
-    large = np.asarray(render_frame(scene_l, meta_l, state, W, H))
-
-    mesh_intersect.LARGE_MODE = False
-    build_render_fn.cache_clear()
-    scene_s, meta_s = build_scene(host)
-    small = np.asarray(render_frame(scene_s, meta_s, state, W, H))
-    np.testing.assert_allclose(large, small, atol=2e-5)
-
-
-@pytest.mark.parametrize("s_xl", [4, 128])
-def test_xl_super_cull_matches_small(reference_root, force_large,
-                                     monkeypatch, s_xl):
-    """The 1M+-tier live-list builder (live_chunk_lists3: super-SPHERE
-    culling + block-granularity chunk bits) forced onto the small fixture
-    must reproduce the small-path render exactly -- culling/ordering are
-    skip optimizations, never semantics. s_xl=128 exercises the ragged
-    last super whose pad positions reach past ceil(C/32) bit words (the
-    s>32 bits-padding case); s_xl=4 exercises multi-super ordering on the
-    fixture's small chunk count."""
-    from relativitypathtracer_tpu.ops.pallas import mesh_large
-
-    monkeypatch.setattr(mesh_large, "SUPER_CULL_C", 0)  # force lists3
-    monkeypatch.setattr(mesh_large, "S_SUPER_XL", s_xl)
-    mesh_large.large_shared_nearest_hit.clear_cache()
-    mesh_large.large_general_min_t.clear_cache()
-    host = load_scene_file(str(reference_root / "Scenes" / "shadows.txt"))
-    state = FrameState.initial()
-    W, H = 96, 64
-    scene_l, meta_l = build_scene(host)
-    assert scene_l.mesh_static[0].gen_rec is not None
-    try:
-        xl = np.asarray(render_frame(scene_l, meta_l, state, W, H))
-    finally:
-        mesh_large.large_shared_nearest_hit.clear_cache()
-        mesh_large.large_general_min_t.clear_cache()
-
-    mesh_intersect.LARGE_MODE = False
-    build_render_fn.cache_clear()
-    scene_s, meta_s = build_scene(host)
-    small = np.asarray(render_frame(scene_s, meta_s, state, W, H))
-    np.testing.assert_allclose(xl, small, atol=2e-5)
-
-
-def test_super_spheres_contain_children():
-    """super_spheres_of must produce spheres that CONTAIN every child chunk
-    sphere (the soundness requirement for its cull floors), including a
-    ragged last group."""
-    from relativitypathtracer_tpu.ops.pallas.mesh_kernels import (
-        super_spheres_of)
-
-    rng = np.random.default_rng(7)
-    C, s = 37, 8  # ragged: 5 groups, last has 5 children
-    c = rng.normal(size=(C, 3)).astype(np.float32) * 5
-    r = rng.uniform(0.1, 2.0, size=(C, 1)).astype(np.float32)
-    sph = np.concatenate([c, r], axis=1)
-    sup = np.asarray(super_spheres_of(sph, s))
-    assert sup.shape == (5, 4)
-    for g in range(5):
-        kids = sph[g * s:(g + 1) * s]
-        d = np.linalg.norm(kids[:, :3] - sup[g, :3], axis=1) + kids[:, 3]
-        assert (d <= sup[g, 3] + 1e-5).all(), f"group {g} child escapes"

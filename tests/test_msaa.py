@@ -47,8 +47,8 @@ def test_folded_msaa_equals_single_sample(reference_root, monkeypatch):
     scene, meta = build_scene(host)
     state = FrameState.initial()
     W, H = 96, 64
-    monkeypatch.setenv("RPT_MSAA_FOLD", "1")  # pin the FOLD path (r5 default
-    build_render_fn.cache_clear()             # is the per-sample loop)
+    monkeypatch.setenv("RPT_MSAA_FOLD", "1")  # pin the FOLD path (the
+    build_render_fn.cache_clear()             # default is the per-sample loop)
     ref = np.asarray(build_render_fn(meta, W, H, meta.default_interval, 1)(scene, state))
     monkeypatch.setattr(render_mod, "camera_ray_dirs", fake_dirs)
     build_render_fn.cache_clear()
@@ -80,8 +80,7 @@ def test_real_msaa_close_to_single(reference_root):
 
 def test_loop_mode_matches_folded(reference_root, monkeypatch):
     """The default sequential per-sample loop (the reference's structure,
-    opencl_kernel.cl:642-648; measured 1.44-1.48x faster on-chip in the
-    round-5 A/B) must produce the same image as the folded path
+    opencl_kernel.cl:642-648) must produce the same image as the folded path
     (RPT_MSAA_FOLD=1): the fold is a layout/scheduling choice only."""
     host = load_scene_file(str(reference_root / "Scenes" / "cube.txt"))
     scene, meta = build_scene(host)

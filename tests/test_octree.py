@@ -9,7 +9,7 @@ from relativitypathtracer_tpu.models.octree import tri_box_overlap
 
 
 
-pytestmark = pytest.mark.fast  # inner-loop subset (VERDICT r4 item 8)
+pytestmark = pytest.mark.fast  # inner-loop subset
 
 
 @pytest.fixture(scope="module")

@@ -1,10 +1,10 @@
 """Differential tests: JAX renderer vs the native C++ oracle.
 
 The oracle (native/cpu_reference.cpp) independently implements the full
-reference algorithm including the stackless octree walk; the JAX renderer uses
-the MXU-factored brute-force mesh path. Agreement across all 8 scenes
-cross-validates both. Tolerance: every pixel within 1e-3 except a small
-fraction of contrast-edge pixels where fp rounding flips a hit/miss or
+reference algorithm including the stackless octree walk; the JAX renderer on
+the CPU uses the factored brute-force jnp mesh scan. Agreement across all 8
+scenes cross-validates both. Tolerance: every pixel within 1e-3 except a
+small fraction of contrast-edge pixels where fp rounding flips a hit/miss or
 bilinear-tap decision (inevitable between any two float implementations).
 """
 
@@ -125,7 +125,7 @@ R
     assert len(meta.mesh_ids) == 2
     assert len(meta.mesh_perms[1]) == 1  # B's reachable set excludes A's tri
     # Static kernel inputs sized by the ACTUAL row count (padded to 256).
-    assert scene.mesh_static[1].attrs.shape[0] == 256
+    assert scene.mesh_static[1].gen_rows.shape[1] == 256
     assert scene.mesh_static[1].spheres.shape[0] == 256 // 32
 
     state = FrameState.initial()
@@ -138,3 +138,24 @@ R
     diff = np.abs(ref - ours)
     assert diff.mean() < 1e-3
     assert float(np.mean(diff.max(-1) > 1e-3)) <= 0.01
+
+
+@pytest.mark.parametrize("seed", [0, 3])
+def test_flagship_matches_oracle(seed, oracle, tmp_path):
+    """The in-repository flagship scene (utils.demo_scenes: non-convex
+    5,120-triangle mesh with self-shadowing, moving retarded-time light,
+    textured flashing cube) against the oracle at a small size."""
+    from relativitypathtracer_tpu.utils.demo_scenes import flagship_scene
+
+    scene, meta = flagship_scene(seed)
+    state = FrameState.initial()
+    blob = tmp_path / "flag.blob"
+    out = tmp_path / "flag.rgb"
+    write_scene_blob(str(blob), scene, meta, state, W, H)
+    subprocess.run([oracle, str(blob), str(out)], check=True, capture_output=True)
+    ref = np.fromfile(out, np.float32).reshape(H, W, 3)
+    ours = np.asarray(render_frame(scene, meta, state, W, H))
+    diff = np.abs(ref - ours)
+    assert (ours.max(-1) > 0.3).mean() > 0.05, "flagship frame mostly empty"
+    assert diff.mean() < 1e-3
+    assert float(np.mean(diff.max(-1) > 1e-3)) <= 0.002

@@ -1,17 +1,16 @@
-"""CPU coverage of the PRODUCTION Pallas mesh kernels via interpret mode.
+"""CPU coverage of the PRODUCTION Triton mesh walks via interpret mode.
 
-The golden / oracle-parity suites pin jax to CPU where the jnp fallback runs,
-so without these tests the TPU path (live-chunk cone culling, the bucketed
-counting sort, early termination, tmax search bounding in
-ops/pallas/mesh_kernels.py) would have zero automated coverage. Interpret
-mode executes the real kernel bodies (same while_loop, same SMEM windows)
-with emulated refs, so any semantic divergence from the jnp path shows up
-here.
+The golden / oracle-parity suites pin jax to CPU where the jnp scan runs, so
+without these tests the GPU path (live-chunk cone culling, the bucket order,
+early termination, tmax search bounding in ops/pallas/mesh_kernels.py)
+would have zero automated coverage. Interpret mode executes the real kernel
+bodies (same while_loop, same list loads) with emulated refs, so any
+semantic divergence from the jnp scan shows up here.
 """
 
 import numpy as np
 import pytest
-from conftest import MULTI_SCENE, clear_kernel_caches, render_with_mode as _render
+from conftest import MULTI_SCENE, render_with_mode as _render
 
 from relativitypathtracer_tpu import build_scene, load_scene_file
 from relativitypathtracer_tpu.models.scene import MeshArrays
@@ -20,7 +19,7 @@ from relativitypathtracer_tpu.ops import mesh_intersect
 
 @pytest.mark.parametrize("name", ["shadows", "bunny", "cubes", "cube", "soccer"])
 def test_interpret_kernels_match_jnp_render(name, reference_root):
-    """Full-frame equality between the Pallas kernel path and the jnp path.
+    """Full-frame equality between the Triton walks and the jnp scan.
 
     shadows.txt exercises BOTH kernels (primary mesh hits + per-light shadow
     rays with the tmax bound); bunny.txt is the largest mesh (most chunks,
@@ -138,84 +137,9 @@ def test_general_kernel_segment_cull_modes(mode, monkeypatch):
         mesh_kernels.general_min_t.clear_cache()
 
 
-def test_pair_mode_matches_jnp(monkeypatch, reference_root):
-    """RPT_PAIR=1 (two live chunks per while-loop iteration) must be exact:
-    kernel-level equality on random soup for BOTH kernels (odd/even live
-    counts both occur across blocks, exercising the duplicate-masked tail)
-    plus a full shadows.txt frame (primary attrs + tmax-bounded shadows)."""
-    _clear = clear_kernel_caches  # pair is read at trace time
-
-    monkeypatch.setenv("RPT_PAIR", "1")
-    _clear()
-    try:
-        rng = np.random.default_rng(23)
-        mesh = _soup_mesh(rng, 300)
-        m4 = np.eye(4, dtype=np.float32)
-        o3 = np.array([0.0, 0.0, -6.0], np.float32)
-        d = rng.normal(size=(3, 2048)).astype(np.float32)
-        d[2] = np.abs(d[2]) + 0.5
-        d /= np.linalg.norm(d, axis=0)
-        t0, n0, uv0, v0 = mesh_intersect.mesh_intersect_shared(
-            mesh, (0, 300), m4, m4, o3, d, use_pallas=False)
-        t1, n1, uv1, v1 = mesh_intersect.mesh_intersect_shared(
-            mesh, (0, 300), m4, m4, o3, d, use_pallas="interpret")
-        assert np.array_equal(np.asarray(v0), np.asarray(v1))
-        hit = np.asarray(v0)
-        assert np.allclose(np.asarray(t0)[hit], np.asarray(t1)[hit],
-                           rtol=1e-5, atol=1e-6)
-        assert np.allclose(np.asarray(n0)[:, hit], np.asarray(n1)[:, hit],
-                           rtol=1e-4, atol=1e-4)
-
-        n = 1536
-        o = rng.uniform(-4, 4, (3, n)).astype(np.float32)
-        dg = rng.normal(size=(3, n)).astype(np.float32)
-        dg /= np.linalg.norm(dg, axis=0)
-        tmax = rng.uniform(0.5, 8.0, (n,)).astype(np.float32)
-        t_true = np.asarray(mesh_intersect.mesh_min_t_general(
-            mesh, (0, 300), m4, m4, o, dg, use_pallas=False))
-        t_k = np.asarray(mesh_intersect.mesh_min_t_general(
-            mesh, (0, 300), m4, m4, o, dg, use_pallas="interpret", tmax=tmax))
-        inside = t_true < tmax
-        assert np.allclose(t_k[inside], t_true[inside], rtol=1e-5, atol=1e-6)
-        assert np.all(t_k[~inside] >= tmax[~inside] * (1 - 1e-6))
-
-        host = load_scene_file(str(reference_root / "Scenes" / "shadows.txt"))
-        scene, meta = build_scene(host)
-        ref = _render(scene, meta, False)
-        got = _render(scene, meta, "interpret")
-        diff = np.abs(ref - got)
-        assert diff.mean() < 1e-4
-        assert float(np.mean(diff.max(-1) > 1e-3)) <= 0.002
-
-        # Analytic kernels under pairing: cubes.txt (34 cubes, point light)
-        # exercises both walks through the live-object lists.
-        host_c = load_scene_file(str(reference_root / "Scenes" / "cubes.txt"))
-        scene_c, meta_c = build_scene(host_c)
-        ref_c = _render(scene_c, meta_c, False)
-        got_c = _render(scene_c, meta_c, "interpret")
-        diff_c = np.abs(ref_c - got_c)
-        assert diff_c.mean() < 1e-4
-        assert float(np.mean(diff_c.max(-1) > 1e-3)) <= 0.002
-
-        # Batched multi-mesh kernels under pairing (two-object scene with a
-        # point light: both batched kernels, mixed per-chunk object ids).
-        from relativitypathtracer_tpu import parse_scene
-
-        host_m = parse_scene(MULTI_SCENE, str(reference_root))
-        scene_m, meta_m = build_scene(host_m)
-        assert scene_m.mesh_batch is not None
-        ref_m = _render(scene_m, meta_m, False)
-        got_m = _render(scene_m, meta_m, "interpret")
-        diff_m = np.abs(ref_m - got_m)
-        assert diff_m.mean() < 1e-4
-        assert float(np.mean(diff_m.max(-1) > 1e-3)) <= 0.002
-    finally:
-        _clear()
-
-
 @pytest.mark.parametrize("T", [600, 513, 1100])
 def test_jnp_fallback_covers_tail_chunk(T):
-    """Regression: the jnp fallback's chunk count floor-divided T_pad by
+    """Regression: the jnp scan's chunk count floor-divided T_pad by
     tri_chunk, silently dropping the tail triangles whenever T_pad was not
     a multiple of 512 (T in (512,768], (1024,1280], ...) -- rays passed
     through geometry and shadows leaked on CPU backends. A ray aimed at the
@@ -257,225 +181,15 @@ def test_jnp_fallback_covers_tail_chunk(T):
     assert np.allclose(tg0[fin], tg1[fin], rtol=1e-5, atol=1e-6)
 
 
-def test_pair_mode_chunk_economy(monkeypatch):
-    """Pairing halves loop iterations BY CONSTRUCTION (j advances by 2); the
-    only cost is that early termination is checked every other chunk, so a
-    block may process at most ONE extra chunk past the sequential stop.
-    debug_iters reports the final j (chunks processed): assert
-    chunks_pair <= chunks_single + 1 per block."""
-    import jax.numpy as jnp
-
-    from relativitypathtracer_tpu.ops.pallas import mesh_kernels
-
-    rng = np.random.default_rng(31)
-    T = 288
-    mesh = _soup_mesh(rng, T)
-    ro = jnp.asarray([0.0, 0.0, -6.0], jnp.float32)
-    consts, c_t, _T, T_pad = mesh_intersect.shared_origin_constants(
-        mesh, (0, T), ro)
-    attrs = mesh_intersect.tri_attr_matrix(mesh, (0, T), T_pad)
-    A, B, C = mesh_intersect.mesh_tri_vertices(mesh, (0, T))
-    spheres = mesh_kernels.chunk_spheres(A, B, C, T, T_pad)
-    d = rng.normal(size=(3, 2048)).astype(np.float32)
-    d[2] = np.abs(d[2]) + 0.5
-    d /= np.linalg.norm(d, axis=0)
-    dh = jnp.asarray(d)
-
-    def iters():
-        out = mesh_kernels.shared_nearest_hit(
-            consts, c_t, attrs, spheres, dh, ro, interpret=True,
-            debug_iters=True)
-        return np.asarray(out[-1])
-
-    monkeypatch.setenv("RPT_PAIR", "0")  # pairing is default-on since r4
-    mesh_kernels.shared_nearest_hit.clear_cache()
-    single = iters()
-    monkeypatch.setenv("RPT_PAIR", "1")
-    mesh_kernels.shared_nearest_hit.clear_cache()
-    paired = iters()
-    mesh_kernels.shared_nearest_hit.clear_cache()
-    assert np.all(paired <= single + 1), (single, paired)
-    assert np.all(paired >= single), "pairing cannot process FEWER chunks"
-
-
-@pytest.mark.parametrize("s2,pair", [(2, False), (8, False), (32, False),
-                                     (8, True)])
-def test_order2_matches_jnp(s2, pair, monkeypatch, reference_root):
-    """RPT_ORDER2=S (superchunk-level front-to-back ordering + per-chunk
-    overlap bitmask + scalar skip-advance, mesh_kernels._order2_s) only
-    changes walk ORDER and early-termination granularity, never results:
-    kernel-level equality on random soup for BOTH kernels and a full
-    shadows.txt frame. s2=32 with a 10-chunk soup makes a single super whose
-    tail positions are pure bitmask padding; (8, True) composes with
-    RPT_PAIR (dead-slot skip between the pair halves + the clamped dead
-    tail)."""
-    monkeypatch.setenv("RPT_ORDER2", str(s2))
-    monkeypatch.setenv("RPT_PAIR", "1" if pair else "0")
-    from relativitypathtracer_tpu.ops.pallas import mesh_kernels
-
-    assert mesh_kernels._order2_s() == s2  # knob actually engaged
-    clear_kernel_caches()
-    try:
-        rng = np.random.default_rng(7)
-        mesh = _soup_mesh(rng, 300)  # T_pad 320 -> 10 chunks
-        m4 = np.eye(4, dtype=np.float32)
-        o3 = np.array([0.0, 0.0, -6.0], np.float32)
-        d = rng.normal(size=(3, 2048)).astype(np.float32)
-        d[2] = np.abs(d[2]) + 0.5
-        d /= np.linalg.norm(d, axis=0)
-        t0, n0, _uv0, v0 = mesh_intersect.mesh_intersect_shared(
-            mesh, (0, 300), m4, m4, o3, d, use_pallas=False)
-        t1, n1, _uv1, v1 = mesh_intersect.mesh_intersect_shared(
-            mesh, (0, 300), m4, m4, o3, d, use_pallas="interpret")
-        assert np.array_equal(np.asarray(v0), np.asarray(v1))
-        hit = np.asarray(v0)
-        assert hit.any(), "soup aimed-at rays produced zero hits (vacuous test)"
-        assert np.allclose(np.asarray(t0)[hit], np.asarray(t1)[hit],
-                           rtol=1e-5, atol=1e-6)
-        assert np.allclose(np.asarray(n0)[:, hit], np.asarray(n1)[:, hit],
-                           rtol=1e-4, atol=1e-4)
-
-        n = 1536
-        o = rng.uniform(-4, 4, (3, n)).astype(np.float32)
-        dg = rng.normal(size=(3, n)).astype(np.float32)
-        dg /= np.linalg.norm(dg, axis=0)
-        tmax = rng.uniform(0.5, 8.0, (n,)).astype(np.float32)
-        tmax[: n // 8] = 0.0  # masked-irrelevant lanes
-        t_true = np.asarray(mesh_intersect.mesh_min_t_general(
-            mesh, (0, 300), m4, m4, o, dg, use_pallas=False))
-        t_k = np.asarray(mesh_intersect.mesh_min_t_general(
-            mesh, (0, 300), m4, m4, o, dg, use_pallas="interpret", tmax=tmax))
-        inside = t_true < tmax
-        assert inside.any(), "no hit landed inside its bound (vacuous test)"
-        assert np.allclose(t_k[inside], t_true[inside], rtol=1e-5, atol=1e-6)
-        assert np.all(t_k[~inside] >= tmax[~inside] * (1 - 1e-6))
-
-        if s2 == 8 and not pair:  # one full frame covers the render plumbing
-            host = load_scene_file(str(reference_root / "Scenes" / "shadows.txt"))
-            scene, meta = build_scene(host)
-            ref = _render(scene, meta, False)
-            got = _render(scene, meta, "interpret")
-            diff = np.abs(ref - got)
-            assert diff.mean() < 1e-4
-            assert float(np.mean(diff.max(-1) > 1e-3)) <= 0.002
-    finally:
-        clear_kernel_caches()
-
-
-@pytest.mark.parametrize("sub", [8, 16])
-def test_nb2048_matches_jnp(sub, monkeypatch, reference_root):
-    """RPT_NB=2048 (two screen tiles per mesh-kernel block -- the floor
-    probe's per-block-overhead lever) only changes block grouping and
-    therefore cull/list granularity, never results: kernel-level equality
-    on random soup for BOTH kernels and a full shadows.txt frame. sub=16
-    keeps today's 128-lane sub-cone strips at the doubled block; sub=8 is
-    the coarser 256-lane quad variant."""
-    from relativitypathtracer_tpu.ops.pallas import mesh_kernels
-
-    monkeypatch.setattr(mesh_kernels, "NB", 2048)
-    monkeypatch.setattr(mesh_kernels, "SUB", sub)
-    clear_kernel_caches()
-    try:
-        rng = np.random.default_rng(13)
-        mesh = _soup_mesh(rng, 300)
-        m4 = np.eye(4, dtype=np.float32)
-        o3 = np.array([0.0, 0.0, -6.0], np.float32)
-        # 3 blocks at NB=2048 with a ragged tail (5000 % 2048 != 0)
-        d = rng.normal(size=(3, 5000)).astype(np.float32)
-        d[2] = np.abs(d[2]) + 0.5
-        d /= np.linalg.norm(d, axis=0)
-        t0, n0, _uv0, v0 = mesh_intersect.mesh_intersect_shared(
-            mesh, (0, 300), m4, m4, o3, d, use_pallas=False)
-        t1, n1, _uv1, v1 = mesh_intersect.mesh_intersect_shared(
-            mesh, (0, 300), m4, m4, o3, d, use_pallas="interpret")
-        assert np.array_equal(np.asarray(v0), np.asarray(v1))
-        hit = np.asarray(v0)
-        assert hit.any(), "soup aimed-at rays produced zero hits (vacuous)"
-        assert np.allclose(np.asarray(t0)[hit], np.asarray(t1)[hit],
-                           rtol=1e-5, atol=1e-6)
-
-        n = 3000
-        o = rng.uniform(-4, 4, (3, n)).astype(np.float32)
-        dg = rng.normal(size=(3, n)).astype(np.float32)
-        dg /= np.linalg.norm(dg, axis=0)
-        tmax = rng.uniform(0.5, 8.0, (n,)).astype(np.float32)
-        tmax[: n // 8] = 0.0  # masked-irrelevant lanes
-        t_true = np.asarray(mesh_intersect.mesh_min_t_general(
-            mesh, (0, 300), m4, m4, o, dg, use_pallas=False))
-        t_k = np.asarray(mesh_intersect.mesh_min_t_general(
-            mesh, (0, 300), m4, m4, o, dg, use_pallas="interpret", tmax=tmax))
-        inside = t_true < tmax
-        assert inside.any(), "no hit landed inside its bound (vacuous)"
-        assert np.allclose(t_k[inside], t_true[inside], rtol=1e-5, atol=1e-6)
-        assert np.all(t_k[~inside] >= tmax[~inside] * (1 - 1e-6))
-
-        if sub == 16:  # one full frame covers the render plumbing
-            host = load_scene_file(str(reference_root / "Scenes" / "shadows.txt"))
-            scene, meta = build_scene(host)
-            ref = _render(scene, meta, False)
-            got = _render(scene, meta, "interpret")
-            diff = np.abs(ref - got)
-            assert diff.mean() < 1e-4
-            assert float(np.mean(diff.max(-1) > 1e-3)) <= 0.002
-    finally:
-        clear_kernel_caches()
-
-
-def test_order2_rejects_bad_granularity(monkeypatch):
-    """S must divide 32 (bitmask-word tail-padding soundness): anything else
-    fails LOUDLY at trace time, not with silently-corrupt live lists."""
-    monkeypatch.setenv("RPT_ORDER2", "5")
-    from relativitypathtracer_tpu.ops.pallas import mesh_kernels
-
-    with pytest.raises(ValueError, match="RPT_ORDER2"):
-        mesh_kernels._order2_s()
-
-
-SPHERES_SCENE = "\n".join(
-    ["Os\n p%d,%d,%d,0,0,0,0,1,1,1\n c0.%d,0.5,0.9" % (x, y, 6 + 2 * k, k + 1)
-     for k, (x, y) in enumerate([(-4, 0), (-2, 1), (0, -1), (2, 1), (4, 0),
-                                 (0, 3)])]
-    + ["Os\n p0,8,8,0,0,0,0,0.3,0.3,0.3\n c1,1,1\n l1", "A0.3", "R", ""])
-
-
-def test_abound_mode_matches_jnp(monkeypatch, reference_root):
-    """RPT_ABOUND=1 (per-lane walk-bound pre-pass in the analytic nearest
-    kernel) only changes early TERMINATION, never results: full-frame
-    equality on cubes.txt (34 cubes -> the cube walk) and a 7-sphere scene
-    (the sphere walk), both above CULL_MIN_OBJECTS."""
-    from relativitypathtracer_tpu import parse_scene
-    from relativitypathtracer_tpu.ops.pallas import analytic_kernels
-
-    monkeypatch.setenv("RPT_ABOUND", "1")
-    assert analytic_kernels._abound_mode()  # knob actually engaged
-    analytic_kernels.analytic_nearest_shared.clear_cache()
-    try:
-        for src in ("cubes", None):
-            if src:
-                host = load_scene_file(str(reference_root / "Scenes" / f"{src}.txt"))
-            else:
-                host = parse_scene(SPHERES_SCENE, str(reference_root))
-            scene, meta = build_scene(host)
-            ref = _render(scene, meta, False)
-            got = _render(scene, meta, "interpret")
-            diff = np.abs(ref - got)
-            assert diff.mean() < 1e-4, f"{src}: mean diff {diff.mean()}"
-            assert float(np.mean(diff.max(-1) > 1e-3)) <= 0.002, src
-    finally:
-        analytic_kernels.analytic_nearest_shared.clear_cache()
-
-
-def test_interpret_batched_multimesh_matches_jnp(reference_root):
-    """The batched multi-mesh kernels (one fused chunk pool + per-chunk
-    object ids, ops/pallas/mesh_batch.py) against the unrolled jnp path on a
-    two-mesh scene with a point light: exercises BOTH batched kernels
-    (primary nearest-hit with per-object rest frames + shadow min-t with the
-    light excluded via the static `enabled` tuple)."""
+def test_interpret_multimesh_matches_jnp(reference_root):
+    """Two mesh objects with a point light through the per-mesh walk loop
+    against the jnp scan: both walks, per-object rest frames, and the light
+    excluded from its own occlusion test."""
     from relativitypathtracer_tpu import parse_scene
 
     host = parse_scene(MULTI_SCENE, str(reference_root))
     scene, meta = build_scene(host)
-    assert scene.mesh_batch is not None and len(meta.mesh_chunk_counts) == 2
+    assert len(meta.mesh_ids) == 2
     ref = _render(scene, meta, False)
     got = _render(scene, meta, "interpret")
     diff = np.abs(ref - got)
@@ -485,8 +199,8 @@ def test_interpret_batched_multimesh_matches_jnp(reference_root):
 
 
 def test_interpret_batched_many_instances(tmp_path):
-    """8 disjoint mesh instances -> ONE batched kernel (the VERDICT many-mesh
-    requirement): per-pixel equality with the unrolled jnp path."""
+    """8 disjoint instances of one mesh in one frame, each walked in its own
+    rest frame: per-pixel equality with the jnp scan."""
     from relativitypathtracer_tpu import build_scene, parse_scene
 
     (tmp_path / "tri.obj").write_text(
@@ -497,7 +211,7 @@ def test_interpret_batched_many_instances(tmp_path):
     lines += ["A1", "R", ""]
     host = parse_scene("\n".join(lines), str(tmp_path))
     scene, meta = build_scene(host)
-    assert len(meta.mesh_ids) == 8 and scene.mesh_batch is not None
+    assert len(meta.mesh_ids) == 8
     ref = _render(scene, meta, False)
     got = _render(scene, meta, "interpret")
     diff = np.abs(ref - got)
@@ -505,86 +219,14 @@ def test_interpret_batched_many_instances(tmp_path):
     assert float(np.mean(diff.max(-1) > 1e-3)) <= 0.002
 
 
-def test_interpret_windowed_texture_kernel_exact():
-    """footprint_sample_windowed vs the jnp reference sampler at the kernel
-    level: multi-window row spreads, window clamping at the table end, and
-    the 16-rows-per-DMA-row packing must reproduce the gather exactly (the
-    fetch is a pure select; only the final bilinear mix may differ by fp
-    association, well under 1e-5)."""
-    import jax.numpy as jnp
-
-    from relativitypathtracer_tpu.ops.pallas.texture_kernel import (
-        W_ROWS, footprint_sample_windowed)
-    from relativitypathtracer_tpu.ops.texture_sample import (
-        bilinear_sample_footprint)
-
-    rng = np.random.default_rng(3)
-    n = 4096
-    w, h = 224, 240  # box.jpg-like block-tiled region
-    wb = w // 16
-    rows = (wb * (h // 16) * 256) * 4 // 8
-    assert rows > 3 * W_ROWS  # forces multi-window walks
-    quads = jnp.asarray(rng.integers(0, 2 ** 24, (rows, 8), dtype=np.uint32))
-    fp = jnp.asarray(np.broadcast_to(
-        np.array([0, 0, 0, wb, w, h], np.int32)[:, None], (6, n)))
-    wa = jnp.full((n,), w, jnp.int32)
-    ha = jnp.full((n,), h, jnp.int32)
-    # Mix coherent blocks (single window), scattered blocks (many windows),
-    # and uv at the table-end clamp region.
-    uv = rng.random((2, n)).astype(np.float32)
-    uv[:, :1024] = (0.02 + 0.03 * rng.random((2, 1024))).astype(np.float32)
-    uv[1, 1024:2048] = 0.001  # v ~ 1-eps row -> last atlas rows
-    ref = np.asarray(bilinear_sample_footprint(quads, fp, wa, ha, jnp.asarray(uv)))
-    got = np.asarray(footprint_sample_windowed(
-        quads, fp, wa, ha, jnp.asarray(uv), interpret=True))
-    assert np.abs(ref - got).max() < 1e-5
-
-
-@pytest.mark.fast
-def test_interpret_small_texture_kernel_exact():
-    """footprint_sample_small vs the jnp reference sampler at the kernel
-    level. The kernel fetches through a CHANNEL-SPLIT one-hot MXU dot at
-    DEFAULT precision -- exact because every split value is an integer
-    < 256 (bf16-exact) and the one-hot leaves one nonzero product per
-    output; this test is the pin for that precision argument. Covers the
-    hi/lo half select and the uv clamp edges."""
-    import jax.numpy as jnp
-
-    from relativitypathtracer_tpu.ops.pallas.texture_kernel import (
-        MAX_ROWS, footprint_sample_small)
-    from relativitypathtracer_tpu.ops.texture_sample import (
-        bilinear_sample_footprint)
-
-    rng = np.random.default_rng(5)
-    n = 4096
-    w, h = 32, 48  # small bunny-like region, atlas within MAX_ROWS
-    wb = w // 16
-    rows = (wb * (h // 16) * 256) * 4 // 8
-    assert rows <= MAX_ROWS
-    quads = jnp.asarray(rng.integers(0, 2 ** 24, (rows, 8), dtype=np.uint32))
-    fp = jnp.asarray(np.broadcast_to(
-        np.array([0, 0, 0, wb, w, h], np.int32)[:, None], (6, n)))
-    wa = jnp.full((n,), w, jnp.int32)
-    ha = jnp.full((n,), h, jnp.int32)
-    uv = rng.random((2, n)).astype(np.float32)
-    uv[0, :512] = 0.999  # u at the x-clamp (reference tap quirk region)
-    uv[1, 512:1024] = 0.001  # v ~ 1-eps -> last rows
-    ref = np.asarray(bilinear_sample_footprint(quads, fp, wa, ha, jnp.asarray(uv)))
-    got = np.asarray(footprint_sample_small(
-        quads, fp, wa, ha, jnp.asarray(uv), interpret=True))
-    assert np.abs(ref - got).max() < 1e-5
-
-
 @pytest.mark.fast
 def test_sampler_9row_fp_matches_6row():
     """The renderer passes fp widened with precomputed tile_params rows
-    [sm1 ss r16] (the per-object form of the Morton grid constants); both
-    the XLA gather and the small kernel must produce BIT-identical results
-    to the self-derived 6-row form."""
+    [sm1 ss r16] (the per-object form of the Morton grid constants); the
+    footprint gather must produce BIT-identical results to the self-derived
+    6-row form."""
     import jax.numpy as jnp
 
-    from relativitypathtracer_tpu.ops.pallas.texture_kernel import (
-        footprint_sample_small)
     from relativitypathtracer_tpu.ops.texture_layout import tile_params
     from relativitypathtracer_tpu.ops.texture_sample import (
         bilinear_sample_footprint)
@@ -603,100 +245,21 @@ def test_sampler_9row_fp_matches_6row():
     wa = jnp.full((n,), w, jnp.int32)
     ha = jnp.full((n,), h, jnp.int32)
     uv = jnp.asarray(rng.random((2, n)).astype(np.float32))
-    for fn, kw in ((bilinear_sample_footprint, {}),
-                   (footprint_sample_small, {"interpret": True})):
-        a = np.asarray(fn(quads, jnp.asarray(fp6), wa, ha, uv, **kw))
-        b = np.asarray(fn(quads, jnp.asarray(fp9), wa, ha, uv, **kw))
-        np.testing.assert_array_equal(a, b)
+    a = np.asarray(bilinear_sample_footprint(quads, jnp.asarray(fp6), wa, ha, uv))
+    b = np.asarray(bilinear_sample_footprint(quads, jnp.asarray(fp9), wa, ha, uv))
+    np.testing.assert_array_equal(a, b)
 
 
-def test_live_objects_culling_is_conservative():
-    """Property: an object whose jnp-path intersection reports ANY hit in a
-    block must appear in that block's live list (the conservative cone
-    transform may over-include, never exclude). Random boosted objects and
-    random camera dirs probe the Frobenius-norm angle inflation."""
-    import jax.numpy as jnp
+def test_interpret_flagship_matches_jnp():
+    """The flagship scene (utils.demo_scenes) through the whole renderer with
+    the Triton walks in interpret mode against the jnp scan: primary walk,
+    per-light shadow walk with tmax bounds and occlusion retirement."""
+    from relativitypathtracer_tpu.utils.demo_scenes import flagship_scene
 
-    from relativitypathtracer_tpu.ops.intersect import cube_intersect, sphere_intersect
-    from relativitypathtracer_tpu.ops.pallas.analytic_kernels import (
-        NB, live_objects, pack_analytic_params)
-    from relativitypathtracer_tpu.ops.relmath import inverse4, lorentz, trs
-
-    rng = np.random.default_rng(5)
-    O, n_blocks = 12, 4
-    n = NB * n_blocks
-    kinds = rng.integers(0, 2, O)  # 0 sphere, 1 cube
-    m4s, inv_m4s, Ls = [], [], []
-    for _ in range(O):
-        pos = rng.uniform(-6, 6, 3); pos[2] = rng.uniform(3, 14)
-        ang = rng.uniform(0, 3.1)
-        axis = rng.normal(size=3)
-        scale = rng.uniform(0.2, 1.5, 3)
-        m = trs(jnp.asarray(pos, jnp.float32), float(ang),
-                jnp.asarray(axis, jnp.float32),
-                jnp.asarray(scale, jnp.float32))
-        v = rng.uniform(-0.6, 0.6, 3) * rng.uniform(0, 1)
-        m4s.append(m); inv_m4s.append(inverse4(m))
-        Ls.append(lorentz(jnp.asarray(v, jnp.float32)))
-    m4s = jnp.stack(m4s); inv_m = jnp.stack(inv_m4s); L = jnp.stack(Ls)
-    stat_cam = jnp.einsum("oij,j->oi", L, jnp.zeros((4,)))
-
-    # Blocks of coherent dirs (tile-like cones)
-    d = []
-    for b in range(n_blocks):
-        c = rng.normal(size=3); c[2] = abs(c[2]) + 1.0; c /= np.linalg.norm(c)
-        jitter = rng.normal(size=(3, NB)) * 0.08
-        db = c[:, None] + jitter
-        d.append(db / np.linalg.norm(db, axis=0))
-    d3 = jnp.asarray(np.concatenate(d, axis=1), jnp.float32)
-    interval = -1
-    dir4 = jnp.concatenate([jnp.full((1, n), float(interval)), d3], axis=0)
-
-    sph_ids = tuple(int(i) for i in np.nonzero(kinds == 0)[0])
-    cub_ids = tuple(int(i) for i in np.nonzero(kinds == 1)[0])
-    params = pack_analytic_params(L, inv_m, stat_cam, sph_ids + cub_ids)
-
-    for ids, rs, fn, base in (
-        (sph_ids, 1.0, sphere_intersect, 0),
-        (cub_ids, 3.0 ** 0.5, cube_intersect, len(sph_ids)),
-    ):
-        if not ids:
-            continue
-        g = len(ids)
-        order, _, counts = live_objects(
-            params[base:base + g], jnp.full((g,), rs), dir4, interval)
-        live = np.zeros((n_blocks, g), bool)
-        for b in range(n_blocks):
-            for j in range(int(counts[b, 0, 0])):
-                live[b, int(order[b, 0, j])] = True
-        for slot, i in enumerate(ids):
-            d4 = L[i] @ dir4
-            t, _, _, _ = fn(inv_m[i], stat_cam[i, 1:4], d4[1:4])
-            hits = np.asarray(t < 1e19).reshape(n_blocks, NB).any(axis=1)
-            missed = hits & ~live[:, slot]
-            assert not missed.any(), (
-                f"object {i} hit in blocks {np.nonzero(missed)[0]} but culled")
-
-
-@pytest.mark.parametrize("name", ["bunny", "shadows", "cube"])
-def test_analytic_direct_matches_kernel(name, reference_root, monkeypatch):
-    """RPT_ANALYTIC_DIRECT=99 (route analytic objects through the direct
-    XLA-fused intersects while meshes stay on the Pallas kernels) must
-    match the all-kernel route -- same fp32 math modulo reduce grouping
-    and hit/miss ties, like the kernel-vs-jnp full-frame equality above.
-    This is the exactness guard for the round-5 on-chip A/B (ATTRIB_r05's
-    2.54 ms non-mesh residual on a ONE-analytic-object scene)."""
-    host = load_scene_file(str(reference_root / "Scenes" / f"{name}.txt"))
-    scene, meta = build_scene(host)
-    ref = _render(scene, meta, "interpret")
-    monkeypatch.setenv("RPT_ANALYTIC_DIRECT", "99")
-    clear_kernel_caches()
-    try:
-        got = _render(scene, meta, "interpret")
-    finally:
-        monkeypatch.delenv("RPT_ANALYTIC_DIRECT")
-        clear_kernel_caches()
+    scene, meta = flagship_scene(0)
+    ref = _render(scene, meta, False, w=96, h=64)
+    got = _render(scene, meta, "interpret", w=96, h=64)
     diff = np.abs(ref - got)
-    frac_bad = float(np.mean(diff.max(-1) > 1e-3))
+    assert (ref.max(-1) > 0.3).mean() > 0.05, "flagship frame mostly empty"
     assert diff.mean() < 1e-4, f"mean diff {diff.mean()}"
-    assert frac_bad <= 0.002, f"{frac_bad * 100:.2f}% pixels differ > 1e-3"
+    assert float(np.mean(diff.max(-1) > 1e-3)) <= 0.002

@@ -10,7 +10,7 @@ ETA = np.diag([-1.0, 1.0, 1.0, 1.0]).astype(np.float32)  # Minkowski metric (-++
 
 
 
-pytestmark = pytest.mark.fast  # inner-loop subset (VERDICT r4 item 8)
+pytestmark = pytest.mark.fast  # inner-loop subset
 
 
 def rand_velocity(n=1, vmax=0.95):

@@ -81,7 +81,7 @@ def test_velocity_composition_stays_subluminal():
 
 def test_render_uint8_matches_host_packing(reference_root):
     """out_uint8 packs on device with exactly utils.image.to_uint8 semantics
-    (the viewer fetches uint8 frames -- 4x less relay traffic)."""
+    (the viewer fetches uint8 frames -- 4x fewer bytes per frame)."""
     from relativitypathtracer_tpu import FrameState, build_scene, load_scene_file
     from relativitypathtracer_tpu.render import build_render_fn
     from relativitypathtracer_tpu.utils.image import to_uint8

@@ -80,7 +80,7 @@ def test_revcone_shrinks_live_lists():
     import jax.numpy as jnp
 
     from relativitypathtracer_tpu.ops.pallas.mesh_kernels import (
-        NB, TC_GEN, chunk_spheres, live_chunk_lists)
+        NB, TC, chunk_spheres, live_chunk_lists)
 
     rng = np.random.default_rng(37)
     K = 16  # clusters == chunks
@@ -94,7 +94,7 @@ def test_revcone_shrinks_live_lists():
     A = jnp.asarray(cent, jnp.float32)
     B = A + jnp.asarray(off[:, 0])
     C = A + jnp.asarray(off[:, 1])
-    spheres = chunk_spheres(A, B, C, T, T, tc=TC_GEN)
+    spheres = chunk_spheres(A, B, C, T, T, tc=TC)
 
     light = np.array([0.0, 0.0, 8.0], np.float32)
     n = 2 * NB
@@ -120,7 +120,7 @@ def test_revcone_shrinks_live_lists():
 @pytest.mark.parametrize("name", ["shadows", "bunny"])
 def test_revcone_full_frame(name, monkeypatch, reference_root):
     """Full-frame equality vs the jnp path with the knob ON: shadows.txt
-    (multi-object, batched general kernel) + bunny.txt (single-mesh path)."""
+    (multi-object) + bunny.txt (the largest shipped mesh)."""
     monkeypatch.setenv("RPT_REVCONE", "1")
     clear_kernel_caches()
     try:
@@ -137,14 +137,14 @@ def test_revcone_full_frame(name, monkeypatch, reference_root):
 
 
 def test_revcone_multi_mesh_frame(monkeypatch, reference_root):
-    """Batched-kernel coverage: the two-mesh scene renders identically with
-    the knob on (per-object endpoint conversion through s_os)."""
+    """Multi-mesh coverage: the two-mesh scene renders identically with
+    the knob on (per-object endpoint conversion)."""
     monkeypatch.setenv("RPT_REVCONE", "1")
     clear_kernel_caches()
     try:
         host = parse_scene(MULTI_SCENE, str(reference_root))
         scene, meta = build_scene(host)
-        assert scene.mesh_batch is not None
+        assert len(meta.mesh_ids) == 2
         ref = _render(scene, meta, False)
         got = _render(scene, meta, "interpret")
         diff = np.abs(ref - got)
@@ -153,34 +153,3 @@ def test_revcone_multi_mesh_frame(monkeypatch, reference_root):
         assert frac_bad <= 0.002
     finally:
         clear_kernel_caches()
-
-
-def test_revcone_large_tier(monkeypatch):
-    """Large-tier general walk (HBM-streaming kernel) with the knob on:
-    verdict-exact vs the jnp truth on the converging fixture."""
-    from relativitypathtracer_tpu.ops.pallas import mesh_kernels, mesh_large
-
-    rng = np.random.default_rng(41)
-    mesh = _soup_mesh(rng, 512)
-    m4 = np.eye(4, dtype=np.float32)
-    light = np.array([0.0, 0.0, 6.0], np.float32)
-    o, d, tmax = _converging_rays(rng, 1536, light)
-
-    t_true = np.asarray(mesh_intersect.mesh_min_t_general(
-        mesh, (0, 512), m4, m4, o, d, use_pallas=False))
-
-    monkeypatch.setenv("RPT_REVCONE", "1")
-    monkeypatch.setattr(mesh_intersect, "LARGE_MODE", True)
-    mesh_kernels.general_min_t.clear_cache()
-    mesh_large.large_general_min_t.clear_cache()
-    try:
-        t_k = np.asarray(mesh_intersect.mesh_min_t_general(
-            mesh, (0, 512), m4, m4, o, d, use_pallas="interpret", tmax=tmax))
-    finally:
-        mesh_kernels.general_min_t.clear_cache()
-        mesh_large.large_general_min_t.clear_cache()
-
-    inside = t_true < tmax
-    assert inside.any(), "no occluded lane (vacuous test)"
-    assert np.allclose(t_k[inside], t_true[inside], rtol=1e-5, atol=1e-6)
-    assert np.all(t_k[~inside] >= tmax[~inside] * (1 - 1e-6))

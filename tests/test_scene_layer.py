@@ -12,7 +12,7 @@ ALL_SCENES = ["arch", "bunny", "cube", "cubes", "ladder_paradox", "rulers", "sha
 
 
 
-pytestmark = pytest.mark.fast  # inner-loop subset (VERDICT r4 item 8)
+pytestmark = pytest.mark.fast  # inner-loop subset
 
 
 def test_parse_simple_scene():

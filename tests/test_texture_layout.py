@@ -15,7 +15,7 @@ from relativitypathtracer_tpu.ops.texture_layout import (
 
 import pytest
 
-pytestmark = pytest.mark.fast  # inner-loop subset (VERDICT r4 item 8)
+pytestmark = pytest.mark.fast  # inner-loop subset
 
 
 def _grid(rw, rh):
@@ -56,7 +56,7 @@ def test_morton_locality():
 
 
 def _slot_reference(lx, ly, wb, rh):
-    """The pre-round-5 formula with TRUE integer division: the ground truth
+    """The self-derived formula with TRUE integer division: the ground truth
     tile_params/tile_slot_fast must reproduce (the hot path replaces
     tx // s with the exact multiply-shift (tx * (65536 // s)) >> 16)."""
     tx = lx >> 4

@@ -11,7 +11,7 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 
 import pytest
 
-pytestmark = pytest.mark.fast  # inner-loop subset (VERDICT r4 item 8)
+pytestmark = pytest.mark.fast  # inner-loop subset
 
 
 def test_version_matches_pyproject():

@@ -150,7 +150,7 @@ def test_web_frontend_end_to_end():
     base = f"http://127.0.0.1:{port_holder['port']}"
     try:
         html = urllib.request.urlopen(f"{base}/", timeout=10).read()
-        assert b"Relativistic TPU Ray Tracer" in html
+        assert b"Relativistic Ray Tracer" in html
         jpeg = urllib.request.urlopen(f"{base}/frame", timeout=30).read()
         assert jpeg[:2] == b"\xff\xd8"  # JPEG SOI
         # hold 'w' over HTTP until the loop has sampled it, then release
@@ -170,8 +170,8 @@ def test_web_frontend_end_to_end():
         assert stats["speed_c"] > 0  # the held 'w' accelerated the camera
         # POST /resize is applied on the RENDER-LOOP thread (request_resize:
         # a handler-thread resize would compile + render concurrently with
-        # the frame loop -- the relay-deadlock pattern): the next frames
-        # must pick up the new size.
+        # the frame loop -- the concurrent-fetch deadlock pattern): the next
+        # frames must pick up the new size.
         urllib.request.urlopen(
             urllib.request.Request(f"{base}/resize?w=96&h=64", method="POST"),
             timeout=10)

@@ -1,6 +1,6 @@
 """Export the frame renderer as a portable AOT artifact (utils/aot.py).
 
-Serving workflow: export once on any host (no TPU needed -- lowering is
+Serving workflow: export once on any host (no GPU needed -- lowering is
 cross-platform), ship the artifact, then on the serving host:
 
     from relativitypathtracer_tpu.utils.aot import load_render
@@ -8,13 +8,14 @@ cross-platform), ship the artifact, then on the serving host:
     img = render(scene, state)   # scene/state are arguments, not constants
 
 Usage:
-  python tools/export_renderer.py --scene /root/reference/Scenes/bunny.txt \
-      --size 1024x768 --platforms tpu --out /tmp/bunny_renderer.jaxexport
+  python tools/export_renderer.py [--scene SCENE.txt] \
+      --size 1024x768 --platforms cuda --out renderer.jaxexport
       [--msaa N] [--kernels real|jnp] [--selfcheck]
 
---kernels real (default) routes the production Pallas kernels (runs only on
-the exported platform); jnp exports the fallback (runs anywhere, useful for
-a cpu-executable artifact). --selfcheck deserializes the artifact and, when
+Without --scene the in-repository flagship scene (utils.demo_scenes) is
+exported. --kernels real (default) routes the Triton mesh walks (runs only
+on a GPU); jnp exports the scan route (runs anywhere, useful for a
+cpu-executable artifact). --selfcheck deserializes the artifact and, when
 this host can execute it, renders one frame and diffs against the live
 renderer.
 """
@@ -32,11 +33,11 @@ sys.path.insert(0, str(REPO))
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--scene", required=True)
+    ap.add_argument("--scene", default=None)
     ap.add_argument("--size", default="1024x768")
     ap.add_argument("--msaa", type=int, default=1)
-    ap.add_argument("--platforms", default="tpu",
-                    help="comma list, e.g. tpu or tpu,cpu")
+    ap.add_argument("--platforms", default="cuda",
+                    help="comma list, e.g. cuda or cuda,cpu")
     ap.add_argument("--kernels", choices=("real", "jnp"), default="real")
     ap.add_argument("--out", required=True)
     ap.add_argument("--selfcheck", action="store_true")
@@ -55,7 +56,12 @@ def main(argv=None) -> int:
 
     W, H = (int(x) for x in args.size.lower().split("x"))
     platforms = tuple(p.strip() for p in args.platforms.split(",") if p.strip())
-    scene, meta = build_scene(load_scene_file(args.scene))
+    if args.scene:
+        scene, meta = build_scene(load_scene_file(args.scene))
+    else:
+        from relativitypathtracer_tpu.utils.demo_scenes import flagship_scene
+
+        scene, meta = flagship_scene()
 
     mesh_intersect.PALLAS_MODE = True if args.kernels == "real" else False
     try:

@@ -72,7 +72,7 @@ def main(argv=None) -> int:
     ap.add_argument("--round", dest="round_tag", default="04")
     ap.add_argument("--stream-scale", type=int, default=1, choices=(1, 2, 4),
                     help="device-side downsample of the fetched frame "
-                         "(bytes / scale^2): the wall-fps lever over a relay")
+                         "(bytes / scale^2)")
     ap.add_argument("--suffix", default="",
                     help="artifact name suffix (e.g. _s2 for a stream-scale "
                          "variant, so two protocol runs don't overwrite)")
@@ -95,20 +95,18 @@ def main(argv=None) -> int:
     core = ViewerCore(load_scene_file(str(ref)), w, h,
                       stream_scale=args.stream_scale)
 
-    # Device-side sustained fps: the renderer alone (chained frames, one
-    # scalar fetch -- utils.timing), decoupled from the HTTP/relay image
-    # fetch. This is the figure the round-4 followup owed: what cadence the
-    # RENDERER sustains at the reference's window size.
-    from relativitypathtracer_tpu.utils.timing import chained_samples_ms
+    # Device-side sustained fps: the renderer alone (utils.timing),
+    # decoupled from the HTTP image fetch: what cadence the RENDERER
+    # sustains at the reference's window size.
+    from relativitypathtracer_tpu.utils.timing import frame_times_ms, percentile
 
     rd = core._get_render(core.sim.interval)
     if core._poly:
         dev_fn = (lambda sc, st: rd(sc, st, core._dirs))
     else:
         dev_fn = rd
-    samples, _ = chained_samples_ms(dev_fn, core.scene, core.sim.frame,
-                                    nbatch=3, batch=12)
-    device_ms = min(samples)
+    device_ms = percentile(frame_times_ms(dev_fn, core.scene, core.sim.frame,
+                                          frames=36)[0], 50)
 
     ready = threading.Event()
     port_box = {}
@@ -172,7 +170,7 @@ def main(argv=None) -> int:
 
         # -- live resize latency (the reference's VBO re-alloc analog,
         # Render.cpp:100-119): request a smaller surface over HTTP, time
-        # until /stats reports it. With the round-5 polymorphic renderer a
+        # until /stats reports it. With the polymorphic renderer a
         # shrink is compile-free (host dirs recompute, ~ms); growing past
         # the padded grid is the one remaining compile and is recorded
         # separately as the honest worst case.

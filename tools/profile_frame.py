@@ -1,6 +1,10 @@
-"""Round-robin stage profiler: times all sub-pipelines interleaved over
-several rounds so relay drift affects every stage equally.
+"""Round-robin stage profiler: times the frame's sub-pipelines interleaved
+over several rounds, so clock and power drift affect every stage equally.
+Each sample is a wall time ended by block_until_ready (utils/timing.py).
 Usage: python tools/profile_frame.py [scene] [WxH] [rounds]
+
+scene: "flagship" (default, utils.demo_scenes) or the name of a reference
+scene under $REF_ASSETS/Scenes.
 """
 
 from __future__ import annotations
@@ -8,7 +12,6 @@ from __future__ import annotations
 import os
 import pathlib
 import sys
-import time
 
 import numpy as np
 
@@ -29,24 +32,25 @@ if __name__ == "__main__":
         mesh_intersect_shared, mesh_min_t_general,
     )
     from relativitypathtracer_tpu.ops.pallas.mesh_kernels import NB, live_chunk_lists
-    from relativitypathtracer_tpu.ops.pallas.shadow_chain import (
-        pack_chain_mats, pack_light_row, shadow_chain,
-    )
     from relativitypathtracer_tpu.render import (
-        FrameState, TILE, _round_up, build_render_fn, intersect_scene,
-        object_frames, tile_swizzle,
+        FrameState, TILE, _round_up, build_render_fn, gather_mats, hit_events,
+        intersect_scene, light_rays, object_frames, scene_min_t, tile_swizzle,
     )
+    from relativitypathtracer_tpu.utils.demo_scenes import flagship_scene
+    from relativitypathtracer_tpu.utils.timing import frame_times_ms
 
-    name = sys.argv[1] if len(sys.argv) > 1 else "bunny"
+    name = sys.argv[1] if len(sys.argv) > 1 else "flagship"
     size = sys.argv[2] if len(sys.argv) > 2 else "1024x768"
     rounds = int(sys.argv[3]) if len(sys.argv) > 3 else 5
     W, H = (int(x) for x in size.split("x"))
-    host = load_scene_file(str(REF / "Scenes" / f"{name}.txt"))
-    scene, meta = build_scene(host)
+    if name == "flagship":
+        scene, meta = flagship_scene()
+    else:
+        scene, meta = build_scene(load_scene_file(str(REF / "Scenes" / f"{name}.txt")))
     state = FrameState.initial()
     interval = meta.default_interval
-    print(f"scene={name} {W}x{H} backend={jax.default_backend()} rounds={rounds}",
-          file=sys.stderr)
+    print(f"scene={name} {W}x{H} device={jax.devices()[0].device_kind} "
+          f"rounds={rounds}", file=sys.stderr)
 
     ph, pw = _round_up(H, TILE), _round_up(W, TILE)
     dirs = camera_ray_dirs(W, H, pad_width=pw, pad_height=ph)
@@ -102,18 +106,23 @@ if __name__ == "__main__":
 
     if meta.light_ids and interval != 0:
         li = meta.light_ids[0]
-        mats = pack_chain_mats(L, inv_L, stat_cam)
-        light_row = pack_light_row(L[li], inv_L[li], scene.objects.m[li][:3, 3])
 
         @jax.jit
-        def chain(mats, light_row, dir4, t, normal, obj):
+        def shadow_setup(scene, L, inv_L, stat_cam, dir4, t, normal, obj, did_hit):
             with jax.default_matmul_precision("highest"):
-                return shadow_chain(mats, light_row, dir4, t, normal, obj, interval)
+                onehot = (jnp.arange(meta.num_objects)[:, None] == obj[None, :]
+                          ).astype(jnp.float32)
+                L_hit = gather_mats(L, onehot)
+                hit_pos = hit_events(inv_L, onehot, L_hit, stat_cam.T @ onehot,
+                                     dir4, t, normal, did_hit)
+                ld3, _, ndotl, tmax = light_rays(scene.objects, L, inv_L, L_hit,
+                                                 hit_pos, normal, interval, li)
+                relevant = did_hit & (obj != li) & (ndotl > 0)
+                return hit_pos, ld3, jnp.where(relevant, tmax, 0.0)
 
-        stages["chain kernel"] = (chain, (mats, light_row, dir4, t, normal, obj))
-        hit_pos, ld3, ndotl, tmax, llen = chain(mats, light_row, dir4, t, normal, obj)
-        relevant = did_hit & (obj != li) & (ndotl > 0)
-        tmax_m = jnp.where(relevant, tmax, 0.0)
+        setup_args = (scene, L, inv_L, stat_cam, dir4, t, normal, obj, did_hit)
+        stages["shadow setup"] = (shadow_setup, setup_args)
+        hit_pos, ld3, tmax_m = shadow_setup(*setup_args)
         sdir4 = jnp.concatenate(
             [jnp.full((1, n), float(interval)), normalize3(ld3)], axis=0)
 
@@ -145,8 +154,6 @@ if __name__ == "__main__":
 
             stages["shadow live list"] = (shadow_list, (scene, hit_pos, sdir4, tmax_m))
 
-        from relativitypathtracer_tpu.render import scene_min_t
-
         @jax.jit
         def shadow_all(scene, hit_pos, ld3, tmax_m):
             with jax.default_matmul_precision("highest"):
@@ -155,30 +162,11 @@ if __name__ == "__main__":
 
         stages["shadow all-objects"] = (shadow_all, (scene, hit_pos, ld3, tmax_m))
 
-    # warm up everything, then measure interleaved
-    for fn, args in stages.values():
-        out = fn(*args)
-        _ = float(jnp.sum(jax.tree_util.tree_leaves(out)[0]))
-
-    img = full(scene, state)
-    rtt = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        _ = float(jnp.sum(img))
-        rtt.append(time.perf_counter() - t0)
-    rtt = min(rtt)
-    print(f"rtt={rtt*1e3:.2f}ms", file=sys.stderr)
-
-    REPS = 10
     times = {k: [] for k in stages}
     for _r in range(rounds):
         for key, (fn, args) in stages.items():
-            t0 = time.perf_counter()
-            for _i in range(REPS):
-                out = fn(*args)
-            _ = float(jnp.sum(jax.tree_util.tree_leaves(out)[0]))
-            times[key].append((time.perf_counter() - t0 - rtt) / REPS * 1e3)
+            times[key] += frame_times_ms(fn, *args, frames=10)[0]
 
     for key, vals in times.items():
         v = np.asarray(vals)
-        print(f"{key:28s} min={v.min():7.2f}  med={np.median(v):7.2f} ms")
+        print(f"{key:28s} min={v.min():7.3f}  med={np.median(v):7.3f} ms")
